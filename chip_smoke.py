@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving main path on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
 
-  python3 chip_smoke.py
+  python3 chip_smoke.py [--phases device,flash,...]
 
 Phases, each under a watchdog that ends the run with a stack trace
 instead of hanging, each printing one line (or a few) when it ends:
@@ -20,8 +20,26 @@ instead of hanging, each printing one line (or a few) when it ends:
    fixture drawings, serve them through make_live_backend + BatchingServer
    as requests of 8, 24 and 32 programs, and score P/R/F1 against the
    fixture's ground truth, in bf16 (the serving setting) and f32, beside
-   the JAX reference's golden F1; launches of each kernel on that path.
+   the JAX reference's golden F1; launches of each kernel on that path;
+5. train_kernel: fused_attention_train's CUDA forward and backward
+   against their plain version at the flagship's three training shapes
+   (B=64, bf16 and f32, the training fixture's real lengths: encoder
+   self-attention 8 heads over 2 kv heads at 1199 tokens, decoder causal
+   self-attention at 127, cross-attention 127 x 1199), at dropout 0 and
+   0.2; kernel, plain and scaled_dot_product_attention times (the last at
+   rate 0 only, a yardstick) beside the bound;
+6. train_step: one full-width training step of ep221 on the first 8
+   drawings of the training fixture, kernels on, dropout 0, f32 and bf16,
+   against the JAX reference's golden loss, accuracy and per-leaf gradient
+   norms and probes (plankassembly_tpu_torch/fixtures/
+   train_step_jax_golden.npz); launches per step;
+7. fit: the port's CLI `fit` on configs/train_synthetic_gqa.yaml at
+   B=64 from init, dropout 0.2, AUG_RATIO 0.1, 20 epochs of one step on
+   the training fixture, validation on the serving fixture through the
+   decode kernels, then the `last` checkpoint reloaded and compared;
+   losses, ms per step, val P/R/F1, launches of every kernel on that path.
 
+With --phases, only the named phases run, and no result line is printed.
 It then prints the kernels' JSON line, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Any failed check exits non-zero
 before that line. Without CUDA it exits non-zero and prints no result.
@@ -29,6 +47,7 @@ before that line. Without CUDA it exits non-zero and prints no result.
 import faulthandler
 import gzip
 import json
+import math
 import os
 import subprocess
 import sys
@@ -48,7 +67,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 # watchdog budget of each phase, seconds
-BUDGET = {"device": 240, "flash": 180, "decode": 240, "serve": 300}
+BUDGET = {"device": 240, "flash": 180, "decode": 240, "serve": 300,
+          "train_kernel": 300, "train_step": 240, "fit": 420}
+PHASES = tuple(BUDGET)
 
 # tolerances (the plain versions accumulate in f32 like the kernels; the
 # kernels' exp and summation order differ)
@@ -56,6 +77,37 @@ FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 DECODE_F1_TOL = 0.005          # kernel vs plain, bf16, same memory
 SERVE_F1_TOL = {"bf16": 0.01, "f32": 0.002}  # port vs the JAX golden
 REQUESTS = (8, 24, 32)         # programs per request on the main path
+# fused_attention_train through its autograd wrapper against the plain
+# version run in f32 on the same (upcast) inputs, element by element:
+# |got - ref| <= rel * |ref| + row * (max |ref| along the head dim of that
+# row) + 1e-5 * max |ref| over the output. f32: the same arithmetic in
+# another order (~1e-6 of the row); the last term takes the f32 rounding
+# of sums whose exact value is 0 (dq of causal row 0: ds = da - D there,
+# which the plain version cancels exactly and the kernel does not).
+# bf16: the kernel rounds its f32 result once, at most half a bf16 ulp,
+# <= 2^-8 |ref|; one ulp, 2^-7, leaves room for f32 order near a rounding
+# tie. One keep bit that differed moves a whole row of o, dq, dk and dv
+# by a weight of order 1/Lk times O(1) values (~1e-3 at these shapes),
+# well above either bound: the check below flips one typical bit in the
+# plain version and requires every output to fail.
+TRAIN_KERNEL_TOL = {torch.float32: (1e-5, 1e-4),
+                    torch.bfloat16: (2.0 ** -7, 1e-4)}
+TRAIN_RATES = (0.0, 0.2)
+TRAIN_SEED = 1234567
+# the full-width step against the JAX CPU golden (dropout 0): loss and
+# accuracy, per-leaf gradient L2 norm (relative) and probe dot (its error
+# over the leaf's gradient norm, which is the relative gradient error
+# along a random direction). f32: another order of float32 sums through
+# 12 layers (~1e-5 relative); bf16: the frameworks round to bf16 at other
+# points — the JAX golden's own bf16 step differs from its f32 step by up
+# to 2.2% in a norm and 8.6% in a probe, so 5% and 25%. The key biases
+# (`*/bk`) have an exact gradient of 0 (softmax shift invariance) and are
+# held to a small norm instead.
+STEP_TOL = {"f32": {"loss": 1e-4, "acc": 2e-3, "norm": 1e-3, "probe": 1e-2,
+                    "bk": 1e-6},
+            "bf16": {"loss": 2e-2, "acc": 1e-2, "norm": 5e-2, "probe": 0.25,
+                     "bk": 5e-3}}
+FIT_EPOCHS = 20
 
 
 class CheckFailed(Exception):
@@ -401,8 +453,406 @@ def _upto_end(row, end):
     return row[: hits[0] + 1] if hits.size else row
 
 
+# ---------------------------------------------------------------- phase 5
+def _train_shapes(train_packed):
+    """The flagship's three training attention shapes with the training
+    fixture's real lengths: (name, H, Hkv, Lq, Lk, causal, lengths)."""
+    in_len = np.array([(~p["input_mask"]).sum() for p in train_packed])
+    S = train_packed[0]["output_mask"].shape[0] - 1
+    out_len = np.array([(~p["output_mask"][:S]).sum() for p in train_packed])
+    Li = train_packed[0]["input_mask"].shape[0]
+    return [("encoder self", 8, 2, Li, Li, False, in_len),
+            ("decoder self", 8, 2, S, S, True, out_len),
+            ("cross", 8, 2, S, Li, False, in_len)]
+
+
+def _keys(lengths, Lq, Lk, causal):
+    """Keys each query row attends to, summed over the batch."""
+    lens = np.minimum(np.asarray(lengths, np.float64), Lk)
+    if not causal:
+        return float(lens.sum() * Lq)
+    rows = np.arange(1, Lq + 1, dtype=np.float64)
+    return float(np.minimum(lens[:, None], rows[None, :]).sum())
+
+
+def _train_err(got, ref, dtype):
+    """Worst |got - ref| over its TRAIN_KERNEL_TOL bound; <= 1 passes."""
+    rel, row = TRAIN_KERNEL_TOL[dtype]
+    ref = ref.float()
+    d = (got.float() - ref).abs()
+    mag = ref.abs()
+    bound = (rel * mag + row * mag.amax(dim=-1, keepdim=True)
+             + 1e-5 * mag.max())
+    return torch.where(d == 0, 0.0, d / bound).max().item()
+
+
+def _flip_one_keep_bit(q, k, v, do, lengths, causal, sm_scale):
+    """(b, h, i, j) of one typical keep bit: query head 1 at the middle
+    row (qi > 0 at Lq=1199), and among its real keys the one of median
+    a_ij |do_i . v_j|, the size of a flip's change to the row's ds."""
+    h, i = 1, q.shape[2] // 2
+    n = int(min(lengths[0], k.shape[2]))
+    if causal:
+        n = min(n, i + 1)
+    g = h // (q.shape[1] // k.shape[1])
+    a = torch.softmax(k[0, g, :n].float() @ q[0, h, i].float() * sm_scale,
+                      dim=0)
+    effect = a * (v[0, g, :n].float() @ do[0, h, i].float()).abs()
+    return 0, h, i, int(torch.argsort(effect)[n // 2])
+
+
+def train_kernel_case(name, H, Hkv, Lq, Lk, causal, lengths, dtype, rate,
+                      timing=False):
+    from plankassembly_tpu_torch.ops import flash_train as FT
+    B = len(lengths)
+    g = torch.Generator(device=DEVICE).manual_seed(Lq * 7 + Lk)
+    q = torch.randn((B, H, Lq, 64), generator=g, device=DEVICE).to(dtype)
+    k = torch.randn((B, Hkv, Lk, 64), generator=g, device=DEVICE).to(dtype)
+    v = torch.randn((B, Hkv, Lk, 64), generator=g, device=DEVICE).to(dtype)
+    do = torch.randn((B, H, Lq, 64), generator=g, device=DEVICE).to(dtype)
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device=DEVICE)
+    seed = torch.tensor([TRAIN_SEED], dtype=torch.int32, device=DEVICE)
+    args = (q, k, v, lens, seed)
+
+    # the training path's wrapper on leaf tensors, and autograd
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    o = FT.fused_attention_train(*leaves, lens, seed, rate, causal)
+    grads = torch.autograd.grad(o, leaves, do)
+    o = o.detach()
+    torch.cuda.synchronize()
+    check(o.dtype == dtype and all(x.dtype == dtype for x in grads),
+          f"train_kernel {name}: output dtypes")
+    f32 = (q.float(), k.float(), v.float(), lens, seed)
+
+    def plain():
+        return (FT.fused_attention_train_reference(*f32, rate, causal),
+                *FT.fused_attention_train_reference_bwd(
+                    *f32, do.float(), rate, causal))
+
+    refs = plain()
+    errs, abs_errs = {}, {}
+    for out, got, ref in zip(("o", "dq", "dk", "dv"), (o, *grads), refs):
+        check(bool(torch.isfinite(got.float()).all()),
+              f"train_kernel {name}: {out} not finite")
+        abs_errs[out] = (got.float() - ref).abs().max().item()
+        errs[out] = _train_err(got, ref, dtype)
+    res = {"errs": errs, "abs_errs": abs_errs}
+    del refs
+    if rate > 0:
+        # the tolerance sees the mask: the plain version with one keep bit
+        # flipped must fail it in every output
+        b, h, i, j = _flip_one_keep_bit(q, k, v, do, lengths, causal,
+                                        1.0 / math.sqrt(64))
+        keep_mask = FT.keep_mask
+
+        def flipped(*a, **kw):
+            m = keep_mask(*a, **kw)
+            m[b, h, i, j] = ~m[b, h, i, j]
+            return m
+
+        FT.keep_mask = flipped
+        try:
+            refs = plain()
+        finally:
+            FT.keep_mask = keep_mask
+        res["flip"] = (b, h, i, j)
+        res["flip_errs"] = {out: _train_err(got, ref, dtype) for out, got,
+                            ref in zip(("o", "dq", "dk", "dv"), (o, *grads),
+                                       refs)}
+        del refs
+    if timing:
+        res["ms"] = cuda_ms(lambda: FT.kernel_forward(
+            *args, rate, causal, None), reps=5, warmup=1)
+        _, o32, stats = FT.kernel_forward(*args, rate, causal, None)
+        res["bwd_ms"] = cuda_ms(lambda: FT.kernel_backward(
+            *args, do, o32, stats, rate, causal, None), reps=3, warmup=1)
+        res["plain_ms"] = cuda_ms(lambda: FT.fused_attention_train_reference(
+            *args, rate, causal), reps=2, warmup=1)
+        res["plain_bwd_ms"] = cuda_ms(
+            lambda: FT.fused_attention_train_reference_bwd(
+                *args, do, rate, causal), reps=2, warmup=1)
+        if rate == 0.0:
+            res.update(_sdpa_train_ms(q, k, v, do, lens, causal))
+        keys = _keys(lengths, Lq, Lk, causal) * H
+        el = q.element_size()
+        n_q, n_kv = q.numel(), k.numel()
+        for tag, nbytes, flops in (
+                ("", (2 * n_q + 2 * n_kv) * el + B * 4, 4.0 * 64 * keys),
+                ("bwd_", (4 * n_q + 4 * n_kv) * el + B * 4,
+                 10.0 * 64 * keys)):
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+            res[f"{tag}bound_ms"] = max(t_bytes, t_ops)
+            res[f"{tag}bound_by"] = "bytes" if t_bytes >= t_ops \
+                else "operations"
+    return res
+
+
+def _sdpa_train_ms(q, k, v, do, lens, causal):
+    """scaled_dot_product_attention forward, and its backward, with the
+    same length (and causal) mask at rate 0: a yardstick only."""
+    Lq, Lk = q.shape[2], k.shape[2]
+    col = torch.arange(Lk, device=DEVICE)
+    mask = (col[None, :] < lens[:, None])[:, None, None, :]
+    if causal:
+        row = torch.arange(Lq, device=DEVICE)
+        mask = mask & (col[None, :] <= row[:, None])[None, None]
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    fwd = _sdpa(qg, kg, vg, mask)
+    out = fwd()
+    ms = cuda_ms(fwd, reps=5, warmup=1)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                                 retain_graph=True),
+                     reps=5, warmup=1)
+    return {"library_ms": ms, "library_bwd_ms": bwd_ms}
+
+
+def phase_train_kernel(train_packed):
+    results = {}
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for name, H, Hkv, Lq, Lk, causal, lengths in _train_shapes(train_packed):
+        for dtype in (torch.bfloat16, torch.float32):
+            for rate in TRAIN_RATES:
+                timing = dtype == torch.bfloat16
+                r = train_kernel_case(name, H, Hkv, Lq, Lk, causal, lengths,
+                                      dtype, rate, timing=timing)
+                rel, row = TRAIN_KERNEL_TOL[dtype]
+                errs = " ".join(f"{k} {v:.2e}" for k, v in r["errs"].items())
+                tag = (f"train_kernel {name} B={len(lengths)} H={H} "
+                       f"Hkv={Hkv} Lq={Lq} Lk={Lk} causal={causal} "
+                       f"{str(dtype)[6:]} rate={rate}")
+                log(f"{tag}: err over its bound (rel {rel:g}, row {row:g}) "
+                    f"{errs}; max abs err " + " ".join(
+                        f"{k} {v:.2e}" for k, v in r["abs_errs"].items()))
+                check(max(r["errs"].values()) <= 1.0, f"{tag} disagrees")
+                if "flip" in r:
+                    flips = " ".join(f"{k} {v:.2e}"
+                                     for k, v in r["flip_errs"].items())
+                    log(f"  against the plain version with keep bit "
+                        f"{r['flip']} flipped: err over its bound {flips} "
+                        f"(each must exceed 1)")
+                    check(min(r["flip_errs"].values()) > 1.0,
+                          f"{tag}: the tolerance does not see one flipped "
+                          f"keep bit")
+                if timing:  # max |kernel - plain| in the path's dtype
+                    a = r["abs_errs"]
+                    worst["fwd"] = max(worst["fwd"], a["o"])
+                    worst["bwd"] = max(worst["bwd"], a["dq"], a["dk"],
+                                       a["dv"])
+                    lib = (f"; sdpa fwd {r['library_ms']:.3f} ms, bwd "
+                           f"{r['library_bwd_ms']:.3f} ms"
+                           if "library_ms" in r else
+                           "; no library call computes it at this rate")
+                    log(f"  fwd kernel {r['ms']:.3f} ms, plain "
+                        f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} "
+                        f"ms ({r['bound_by']}); bwd kernel {r['bwd_ms']:.3f} "
+                        f"ms, plain {r['plain_bwd_ms']:.3f} ms, bound "
+                        f"{r['bwd_bound_ms']:.4f} ms ({r['bwd_bound_by']})"
+                        f"{lib}")
+                    results[(name, rate)] = r
+                torch.cuda.empty_cache()
+    return results, worst
+
+
+# ---------------------------------------------------------------- phase 6
+def _unpack_infos(infos, root):
+    names = []
+    for info in infos:
+        with open(os.path.join(root, f"{info['name']}.json"), "w") as f:
+            json.dump(info, f)
+        names.append(f"{info['name']}.json")
+    return names
+
+
+def phase_train_step(params, cfg, train_infos, tmp):
+    import dataclasses
+    from plankassembly_tpu_torch.config import ModelDims
+    from plankassembly_tpu_torch.data.line_data import LineDataset
+    from plankassembly_tpu_torch.data.loader import collate
+    from plankassembly_tpu_torch.models.model import train_step_loss
+    from plankassembly_tpu_torch.ops import flash_train as FT
+    from plankassembly_tpu_torch.train.state import tree_leaves
+
+    golden = np.load(os.path.join(FIXTURES, "train_step_jax_golden.npz"))
+    root = os.path.join(tmp, "train_step")
+    os.makedirs(root)
+    n = len(golden["names"])
+    names = _unpack_infos(train_infos[:n], root)
+    ds = LineDataset(root, names, cfg)
+    batch = collate([ds[i] for i in range(n)])
+    check(list(batch["name"]) == list(golden["names"]),
+          "train_step: not the golden's drawings")
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()
+             if isinstance(v, np.ndarray)}
+    dims = dataclasses.replace(ModelDims.from_config(cfg), dropout=0.0)
+    leaves = [(("/".join(p)), t.detach().clone().requires_grad_())
+              for p, t in tree_leaves(params)]
+    check([p for p, _ in leaves] == list(golden["leaf_names"]),
+          "train_step: parameter leaves differ from the golden's")
+    tree = {}
+    for path, t in leaves:
+        node = tree
+        for part in path.split("/")[:-1]:
+            node = node.setdefault(part, {})
+        node[path.split("/")[-1]] = t
+    probes = [torch.from_numpy(np.random.default_rng(i).standard_normal(
+        tuple(t.shape)).astype(np.float32)).to(DEVICE, torch.float64)
+        for i, (_, t) in enumerate(leaves)]
+    valid = int((batch["output_label"] != dims.pad).sum().item())
+    launches = {}
+    for tag, cd in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for _, t in leaves:
+            t.grad = None
+        FT.fwd_launches = FT.bwd_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, mets = train_step_loss(
+            tree, batch, dims, rng=torch.Generator(DEVICE).manual_seed(0),
+            deterministic=False, compute_dtype=cd, flash=True)
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches[tag] = (FT.fwd_launches, FT.bwd_launches)
+        tol = STEP_TOL[tag]
+        g_loss, g_acc = float(golden[f"loss_{tag}"]), float(
+            golden[f"accuracy_{tag}"])
+        d_loss = abs(loss.item() - g_loss) / g_loss
+        d_acc = abs(float(mets["accuracy"]) - g_acc)
+        worst_norm = worst_probe = worst_bk = 0.0
+        for i, (path, t) in enumerate(leaves):
+            gd = t.grad.double()
+            norm = gd.norm().item()
+            if path.endswith("/bk"):
+                worst_bk = max(worst_bk, norm / float(
+                    golden[f"grad_norm_{tag}"].max()))
+                continue
+            ref_norm = float(golden[f"grad_norm_{tag}"][i])
+            worst_norm = max(worst_norm, abs(norm - ref_norm) / ref_norm)
+            dot = (gd * probes[i]).sum().item()
+            worst_probe = max(worst_probe, abs(
+                dot - float(golden[f"grad_probe_{tag}"][i])) / ref_norm)
+        log(f"train_step {tag} B={n} (ep221, dropout 0, kernels on): loss "
+            f"{loss.item():.6f} vs JAX {g_loss:.6f} (rel {d_loss:.2e}, tol "
+            f"{tol['loss']:g}); accuracy {float(mets['accuracy']):.6f} vs "
+            f"{g_acc:.6f} (tol {tol['acc']:g}, {valid} tokens); gradients "
+            f"of {len(leaves)} leaves: worst norm rel {worst_norm:.2e} (tol "
+            f"{tol['norm']:g}), worst probe err/norm {worst_probe:.2e} (tol "
+            f"{tol['probe']:g}), key-bias norm/max {worst_bk:.2e} (tol "
+            f"{tol['bk']:g}); {ms:.1f} ms (first call of the dtype); "
+            f"launches fwd/bwd {launches[tag]}")
+        check(d_loss <= tol["loss"], f"train_step {tag}: loss")
+        check(d_acc <= tol["acc"], f"train_step {tag}: accuracy")
+        check(worst_norm <= tol["norm"], f"train_step {tag}: gradient norm")
+        check(worst_probe <= tol["probe"], f"train_step {tag}: probe")
+        check(worst_bk <= tol["bk"], f"train_step {tag}: key-bias gradient")
+        L = dims.num_encoder_layers + 2 * dims.num_decoder_layers
+        check(launches[tag] == (L, L),
+              f"train_step {tag}: launches {launches[tag]}, expected {L}")
+    return launches["bf16"]
+
+
+# ---------------------------------------------------------------- phase 7
+def phase_fit(train_infos, serve_infos, tmp):
+    from plankassembly_tpu_torch import cli
+    from plankassembly_tpu_torch.ops import attention as A
+    from plankassembly_tpu_torch.ops import flash_train as FT
+    from plankassembly_tpu_torch.ops import persistent_decode as PD
+    from plankassembly_tpu_torch.train.state import tree_leaves
+
+    root = os.path.join(tmp, "fit_data")
+    os.makedirs(root)
+    splits = {}
+    for split, infos in (("train", train_infos), ("valid", serve_infos)):
+        splits[split] = os.path.join(tmp, f"{split}.txt")
+        with open(splits[split], "w") as f:
+            f.write("".join(n + "\n" for n in _unpack_infos(infos, root)))
+    argv = ["fit", "--config", os.path.join(ROOT, "configs",
+                                            "train_synthetic_gqa.yaml"),
+            "--device", DEVICE,
+            "--model.hparams.ROOT", root,
+            "--model.hparams.DATASETS_TRAIN", splits["train"],
+            "--model.hparams.DATASETS_VALID", splits["valid"],
+            "--model.hparams.DATASETS_TEST", splits["valid"],
+            "--trainer.max_epochs", str(FIT_EPOCHS),
+            "--trainer.check_val_every_n_epoch", str(FIT_EPOCHS),
+            "--trainer.log_every_n_steps", "1",
+            "--trainer.decode_impl", "persistent",
+            "--trainer.default_root_dir", os.path.join(tmp, "runs")]
+    log("fit: python -m plankassembly_tpu_torch.cli " + " ".join(argv[:4])
+        + " ... (B=64, dropout 0.2, AUG_RATIO 0.1, seed 2022, "
+        f"{FIT_EPOCHS} epochs of 1 step)")
+    A.launches = PD.launches = FT.fwd_launches = FT.bwd_launches = 0
+    t0 = time.perf_counter()
+    trainer, state = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"fused_attention_train_fwd": FT.fwd_launches,
+              "fused_attention_train_bwd": FT.bwd_launches,
+              "flash_attention": A.launches,
+              "persistent_greedy_decode": PD.launches}
+    cfg = trainer.cfg
+    check((cfg.BATCH_SIZE, cfg.MODEL.DROPOUT, cfg.DATA.AUG_RATIO,
+           cfg.seed_everything, cfg.trainer.fused_attention) ==
+          (64, 0.2, 0.1, 2022, True), "fit: not the flagship's settings")
+    with open(os.path.join(trainer.log_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    steps = [r for r in recs if "train/loss" in r]
+    losses = [r["train/loss"] for r in steps]
+    val = [r for r in recs if "val/fmeasure" in r][-1]
+    check(len(losses) == FIT_EPOCHS == state.step,
+          f"fit: {len(losses)} logged steps, state at {state.step}")
+    check(all(np.isfinite(losses)), "fit: a loss is not finite")
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    # each step's log reads its loss, which waits for the device: the gap
+    # between two logs is one whole step
+    times = [r["time"] for r in steps]
+    ms_step = (times[-1] - times[4]) / (len(times) - 5) * 1e3
+    restored = trainer.load_checkpoint(os.path.join(
+        trainer.log_dir, "checkpoints", "last"))
+    same = all(torch.equal(a.detach(), b.detach()) for (_, a), (_, b) in
+               zip(tree_leaves(state.params), tree_leaves(restored.params)))
+    log(f"fit {FIT_EPOCHS} steps B={cfg.BATCH_SIZE} on {card_line()}: "
+        f"losses {' '.join(f'{x:.4f}' for x in losses)}; mean of the first 5 "
+        f"{first5:.4f}, of the last 5 {last5:.4f}; {ms_step:.1f} ms per step "
+        f"({1e3 / ms_step:.3f} steps/s, steps 6-{FIT_EPOCHS}, host clock); "
+        f"StepTimer {steps[-1].get('train/steps_per_sec')} steps/s; val on "
+        f"{len(serve_infos)} drawings P {val['val/precision']:.4f} R "
+        f"{val['val/recall']:.4f} F1 {val['val/fmeasure']:.4f}; reloaded "
+        f"'last' equal {same}, step {restored.step}; wall {wall:.1f} s; "
+        f"launches {counts}; device idle share not measured here "
+        f"(tools/profile_torch_train.py)")
+    check(last5 < first5, "fit: the loss did not fall")
+    check(same and restored.step == state.step,
+          "fit: the reloaded checkpoint differs")
+    check(0.0 <= val["val/fmeasure"] <= 1.0, "fit: validation F1")
+    check(all(c > 0 for c in counts.values()),
+          f"fit: a kernel did not run on the training path: {counts}")
+    return {"launches": counts, "ms_per_step": ms_step}
+
+
 # ------------------------------------------------------------------- main
+def _entry(name, source, replaces, launches, err, r, prefix="",
+           library_key=None):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": r[f"{prefix}ms"], "plain_ms": r[f"plain_{prefix}ms"],
+            "bound_ms": r[f"{prefix}bound_ms"],
+            "bound_by": r[f"{prefix}bound_by"],
+            "library_ms": r.get(library_key) if library_key else None}
+
+
 def main() -> int:
+    import argparse
+    import tempfile
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES))
+    args = ap.parse_args()
+    phases = args.phases.split(",")
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases {unknown}")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
@@ -411,6 +861,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from plankassembly_tpu_torch.checkpoint import load_checkpoint
     from plankassembly_tpu_torch.config import ModelDims
+    from plankassembly_tpu_torch.data.line_data import LineDataset
     from plankassembly_tpu_torch.ops import _build
     from plankassembly_tpu_torch.serving import pack_info_dict
 
@@ -425,7 +876,8 @@ def main() -> int:
         _build.library()
         built = ("found already built" if _build.build_seconds is None
                  else f"built in {_build.build_seconds:.1f} s")
-        log(f"kernels {built} (nvcc {' '.join(_build.NVCC_FLAGS)})")
+        log(f"kernels {built} (nvcc {' '.join(_build.NVCC_FLAGS)}, one "
+            f"process per source)")
         for line in _build.build_log.splitlines():
             if "registers" in line or "spill" in line and " 0 bytes" not in line:
                 log("  ptxas:", line.strip())
@@ -434,6 +886,8 @@ def main() -> int:
     dims = ModelDims.from_config(cfg)
     with gzip.open(os.path.join(FIXTURES, "serve64.json.gz"), "rt") as f:
         infos = json.load(f)
+    with gzip.open(os.path.join(FIXTURES, "train64.json.gz"), "rt") as f:
+        train_infos = json.load(f)
     golden = np.load(os.path.join(FIXTURES, "serve64_jax_golden.npz"))
     bucket = int(golden["bucket"])
     gt = torch.from_numpy(golden["gt_samples"])
@@ -445,30 +899,76 @@ def main() -> int:
            .to(DEVICE) for k in packed[0]}
     main_lengths = (~req["input_mask"]).sum(dim=1).cpu().numpy()
 
-    with Phase("flash"):
-        flash = phase_flash(main_lengths, bucket)
-    with Phase("decode"):
-        decode = phase_decode(params, dims, req, gt[last], bucket)
-    with Phase("serve"):
-        launches = phase_serve(params, cfg, dims, packed, gt, golden, bucket)
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        if "flash" in phases:
+            with Phase("flash"):
+                res["flash"] = phase_flash(main_lengths, bucket)
+        if "decode" in phases:
+            with Phase("decode"):
+                res["decode"] = phase_decode(params, dims, req, gt[last],
+                                             bucket)
+        if "serve" in phases:
+            with Phase("serve"):
+                res["serve"] = phase_serve(params, cfg, dims, packed, gt,
+                                           golden, bucket)
+        if "train_kernel" in phases:
+            with Phase("train_kernel"):
+                train_root = os.path.join(tmp, "train_kernel")
+                os.makedirs(train_root)
+                names = _unpack_infos(train_infos, train_root)
+                ds = LineDataset(train_root, names, cfg)
+                res["train_kernel"] = phase_train_kernel(
+                    [ds[i] for i in range(len(names))])
+        if "train_step" in phases:
+            with Phase("train_step"):
+                res["train_step"] = phase_train_step(params, cfg,
+                                                     train_infos, tmp)
+        if "fit" in phases:
+            with Phase("fit"):
+                res["fit"] = phase_fit(train_infos, infos, tmp)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    if set(phases) != set(PHASES):
+        log(f"ran phases {phases} only; no result line")
+        return 0
 
+    flash, decode, serve = res["flash"], res["decode"], res["serve"]
+    (kres, worst), fit = res["train_kernel"], res["fit"]
+    enc = kres[("encoder self", 0.2)]
+    enc0 = kres[("encoder self", 0.0)]
+    src = "plankassembly_tpu_torch/csrc/flash_train.cu"
+    fwd = _entry("fused_attention_train_fwd", src,
+                 "plankassembly_tpu/ops/flash_train.py:198",
+                 fit["launches"]["fused_attention_train_fwd"], worst["fwd"],
+                 enc)
+    bwd = _entry("fused_attention_train_bwd", src,
+                 "plankassembly_tpu/ops/flash_train.py:230",
+                 fit["launches"]["fused_attention_train_bwd"], worst["bwd"],
+                 enc, prefix="bwd_")
+    # numbers at the encoder self-attention shape, rate 0.2 (the training
+    # path's); no library call computes that dropout, so library_ms is
+    # null there and SDPA's rate-0 time sits beside the kernel's own
+    fwd.update(shape="encoder self B=64 H=8 Hkv=2 L=1199 bf16", rate=0.2,
+               ms_rate0=enc0["ms"], library_ms_rate0=enc0["library_ms"])
+    bwd.update(shape=fwd["shape"], rate=0.2, ms_rate0=enc0["bwd_ms"],
+               library_ms_rate0=enc0["library_bwd_ms"])
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "plankassembly_tpu_torch/csrc/attention.cu",
          "replaces": "plankassembly_tpu/ops/attention.py:95",
-         "launches": launches["bf16"]["flash_attention"],
+         "launches": serve["bf16"]["flash_attention"],
          "max_abs_err": flash["err"], "ms": flash["ms"],
          "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
          "bound_by": flash["bound_by"], "library_ms": flash["library_ms"]},
         {"name": "persistent_greedy_decode", "route": "cuda",
          "source": "plankassembly_tpu_torch/csrc/decode.cu",
          "replaces": "plankassembly_tpu/ops/persistent_decode.py:632",
-         "launches": launches["bf16"]["persistent_greedy_decode"],
+         "launches": serve["bf16"]["persistent_greedy_decode"],
          "max_abs_err": decode["err"], "ms": decode["ms"],
          "plain_ms": decode["plain_ms"], "bound_ms": decode["bound_ms"],
          "bound_by": decode["bound_by"], "library_ms": None},
+        fwd, bwd,
     ]
-    log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Released checkpoints (`checkpoints/*.npz`) and the JAX parameter layout.
+"""Checkpoints: the released ones (`checkpoints/*.npz`), the port's own
+training checkpoints, and the JAX parameter layout.
 
 A released checkpoint is one flat npz whose keys are ``a/b/c`` paths into
 the parameter tree and whose arrays are bfloat16 stored as the raw 2-byte
@@ -7,6 +8,12 @@ uint16 and reinterprets them as `torch.bfloat16`, so it needs no extra dtype
 package. The port keeps the JAX package's parameter layout: a nested dict
 whose decoder/encoder tensors are stacked on a leading layer axis and whose
 projections act as ``x @ W``.
+
+A training checkpoint of the port (`train/loop.py::Trainer.save_checkpoint`)
+is `<run>/checkpoints/<tag>.pt`: a `torch.save` of the flat ``a/b/c``
+parameter dict, the Adam state and the step, with `<tag>.meta.json` beside
+it and the run's config in `<run>/hparams.yaml`. It holds tensors and plain
+containers only and loads with ``weights_only=True``.
 """
 from __future__ import annotations
 
@@ -60,13 +67,36 @@ def params_to_numpy(params) -> dict:
     return tree_map(lambda t: t.detach().float().cpu().numpy(), params)
 
 
+def _training_file(path: str) -> str:
+    return path if path.endswith(".pt") else path + ".pt"
+
+
+def load_training_params(path: str) -> tuple[dict, dict | None, int]:
+    """(params as float32 CPU tensors, Adam state dict or None, step) of a
+    training checkpoint (`<tag>.pt`, or its path without the suffix) or of
+    a released `.npz` (no optimizer state, step 0)."""
+    if path.endswith(".npz"):
+        return tree_map(lambda t: t.float(), load_npz(path)), None, 0
+    blob = torch.load(_training_file(path), map_location="cpu",
+                      weights_only=True)
+    params = tree_map(lambda t: t.float(), _unflatten(blob["params"]))
+    return params, blob["opt_state"], int(blob["step"])
+
+
 def load_checkpoint(path: str, hparams_path: str | None = None,
                     device=None) -> tuple[dict, Config]:
-    """(params as float32 tensors on `device`, Config) for a released npz
-    and its sidecar `.hparams.yaml`. bf16 weights widen exactly to f32, as
-    the JAX package's loader does (`tools/predict.py:38-49`)."""
+    """(params as float32 tensors on `device`, Config) for serving: a
+    released npz with its sidecar `.hparams.yaml` (bf16 weights widen
+    exactly to f32, as the JAX package's loader does,
+    `tools/predict.py:38-49`), or a training checkpoint of the port with
+    its run's `hparams.yaml`."""
     dev = resolve_device(device)
-    hp = hparams_path or os.path.splitext(path)[0] + ".hparams.yaml"
-    params = tree_map(lambda t: t.to(device=dev, dtype=torch.float32),
-                      load_npz(path))
+    if path.endswith(".npz"):
+        hp = hparams_path or os.path.splitext(path)[0] + ".hparams.yaml"
+    else:
+        run_dir = os.path.dirname(os.path.dirname(
+            os.path.abspath(_training_file(path))))
+        hp = hparams_path or os.path.join(run_dir, "hparams.yaml")
+    params, _, _ = load_training_params(path)
+    params = tree_map(lambda t: t.to(device=dev, dtype=torch.float32), params)
     return params, config_from_hparams_file(hp)

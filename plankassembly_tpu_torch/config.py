@@ -3,9 +3,11 @@
 Frozen dataclasses with the same fields and defaults as the JAX package's
 `plankassembly_tpu/config.py`, plus `ModelDims` (the static model geometry
 of `plankassembly_tpu/models/model.py:35-105`). Checkpoint hyperparameters
-are read from `checkpoints/*.hparams.yaml` with `read_hparams_yaml`, a reader
-for the two-level ``key: value`` YAML subset those files use, so the port
-needs no YAML library.
+(`checkpoints/*.hparams.yaml`) and training configs (`configs/*.yaml`) are
+read with `read_hparams_yaml`, a reader for the nested ``key: value``
+YAML subset those files use, so the port needs no YAML library;
+`load_config` builds a Config from a training config the way the JAX
+package's does.
 """
 from __future__ import annotations
 
@@ -209,13 +211,13 @@ def _scalar(text: str) -> Any:
 
 
 def read_hparams_yaml(path: str) -> dict:
-    """Parse the two-level ``key: value`` YAML that `checkpoints/*.hparams.yaml`
-    holds: top-level keys whose value is either a scalar or a block of
-    indented ``key: scalar`` lines. Anything else (lists, flow style,
-    deeper nesting) raises ValueError."""
+    """Parse the YAML subset of the repo's configs and hparams files:
+    nested mappings of ``key: value`` lines, comments and blank lines.
+    Anything else (lists, flow style, anchors, block scalars, tabs,
+    inconsistent indentation) raises ValueError."""
     out: dict = {}
-    block: dict | None = None
-    indent = None
+    stack = [(0, out)]  # (indent of the children, mapping) of open blocks
+    pending = None      # (indent, key, parent) of a key awaiting a block
     with open(path) as f:
         for lineno, raw in enumerate(f, 1):
             line = raw.split(" #", 1)[0].rstrip()
@@ -224,26 +226,28 @@ def read_hparams_yaml(path: str) -> dict:
             depth = len(line) - len(line.lstrip(" "))
             key, sep, value = line.strip().partition(":")
             value = value.strip()
-            if not sep or key.startswith("-") or value[:1] in ("[", "{", "|",
-                                                               ">", "&", "*",
-                                                               "!"):
+            if "\t" in line or not sep or key.startswith("-") or \
+                    value[:1] in ("[", "{", "|", ">", "&", "*", "!"):
                 raise ValueError(f"{path}:{lineno}: unsupported YAML: {raw!r}")
-            if depth == 0:
-                if value:
-                    out[key] = _scalar(value)
-                    block = None
+            if pending is not None:
+                p_depth, p_key, p_parent = pending
+                pending = None
+                if depth > p_depth:
+                    p_parent[p_key] = {}
+                    stack.append((depth, p_parent[p_key]))
                 else:
-                    block = out[key] = {}
-                    indent = None
+                    p_parent[p_key] = None  # an empty value
+            while depth < stack[-1][0]:
+                stack.pop()
+            if depth != stack[-1][0]:
+                raise ValueError(f"{path}:{lineno}: bad indentation: {raw!r}")
+            node = stack[-1][1]
+            if value:
+                node[key] = _scalar(value)
             else:
-                if block is None:
-                    raise ValueError(f"{path}:{lineno}: indented line "
-                                     f"outside a block: {raw!r}")
-                indent = indent or depth
-                if depth != indent or not value:
-                    raise ValueError(f"{path}:{lineno}: nesting deeper than "
-                                     f"two levels: {raw!r}")
-                block[key] = _scalar(value)
+                pending = (depth, key, node)
+    if pending is not None:
+        pending[2][pending[1]] = None
     return out
 
 
@@ -287,3 +291,108 @@ def config_from_hparams_file(path: str) -> Config:
         if isinstance(flat.get(key), dict):
             flat[key] = _build_dataclass(cls, flat[key])
     return _build_dataclass(Config, flat)
+
+
+# ---------------------------------------------------------------------------
+# training configs (`configs/*.yaml`, the reference's LightningCLI schema)
+# ---------------------------------------------------------------------------
+
+def config_from_dict(raw: dict[str, Any]) -> Config:
+    """A Config from a parsed training config: `seed_everything`, a
+    `trainer` block, and `model.hparams` holding the flat fields and the
+    DATA / MODEL / TOKEN blocks (`plankassembly_tpu/config.py::
+    config_from_dict`)."""
+    flat: dict[str, Any] = {}
+    if "seed_everything" in raw:
+        flat["seed_everything"] = raw["seed_everything"]
+    trainer_raw = dict(raw.get("trainer", {}) or {})
+    trainer_raw.pop("callbacks", None)  # the checkpoint policy is built in
+    # kept as the JAX package maps it, so the two configs compare equal;
+    # the port picks its device from the command line, not from here
+    if trainer_raw.get("accelerator") == "gpu":
+        trainer_raw["accelerator"] = "tpu"
+    flat["trainer"] = _build_dataclass(TrainerConfig, trainer_raw)
+    hparams = dict((raw.get("model", {}) or {}).get("hparams", {}) or {})
+    for key in ("ROOT", "DATASETS_TRAIN", "DATASETS_VALID", "DATASETS_TEST",
+                "BATCH_SIZE", "NUM_WORKERS", "LR", "THRESHOLD"):
+        if key in hparams:
+            flat[key] = hparams[key]
+    for key, cls in (("DATA", DataConfig), ("MODEL", ModelConfig),
+                     ("TOKEN", TokenConfig)):
+        if key in hparams:
+            flat[key] = _build_dataclass(cls, hparams[key])
+    return _build_dataclass(Config, flat)
+
+
+def _coerce(value: str, current: Any) -> Any:
+    if isinstance(current, bool):
+        return value.lower() in ("1", "true", "yes")
+    if isinstance(current, int):
+        return int(value)
+    if isinstance(current, float):
+        return float(value)
+    return value
+
+
+def _set_path(node, parts, value):
+    name = parts[0]
+    if not dataclasses.is_dataclass(node) or not hasattr(node, name):
+        raise KeyError(f"unknown config path segment: {name!r}")
+    current = getattr(node, name)
+    if len(parts) == 1:
+        if isinstance(value, str):
+            value = _coerce(value, current)
+        return dataclasses.replace(node, **{name: value})
+    return dataclasses.replace(
+        node, **{name: _set_path(current, parts[1:], value)})
+
+
+def apply_overrides(cfg: Config, overrides: dict[str, str]) -> Config:
+    """Apply ``--a.b.c value`` overrides; ``model.hparams.X`` names the
+    flat field X, as in LightningCLI. Strings are coerced to the field's
+    current type (so ``1e-4`` becomes a float)."""
+    for dotted, value in overrides.items():
+        path = dotted
+        if path.startswith("model.hparams."):
+            path = path[len("model.hparams."):]
+        cfg = _set_path(cfg, path.split("."), value)
+    return cfg
+
+
+def load_config(path: str, overrides: dict[str, str] | None = None) -> Config:
+    """Load a training config (`configs/*.yaml`) with optional overrides."""
+    cfg = config_from_dict(read_hparams_yaml(path) or {})
+    if overrides:
+        cfg = apply_overrides(cfg, overrides)
+    return cfg
+
+
+def _yaml_scalar(v) -> str:
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if v is None:
+        return "null"
+    if isinstance(v, float):
+        return repr(v)
+    if isinstance(v, int):
+        return str(v)
+    text = str(v)
+    return text if _scalar(text) == text and text.strip() == text \
+        and ": " not in text and text[:1] not in "-?[{|>&*!%@'\"" \
+        else "'" + text.replace("'", "''") + "'"
+
+
+def write_hparams_yaml(cfg: Config, path: str) -> None:
+    """Dump a Config as the two-level ``key: value`` YAML of
+    `checkpoints/*.hparams.yaml` (sorted keys), which `read_hparams_yaml`
+    and PyYAML both read back to the same Config."""
+    lines = []
+    for key, value in sorted(dataclasses.asdict(cfg).items()):
+        if isinstance(value, dict):
+            lines.append(f"{key}:")
+            lines += [f"  {k}: {_yaml_scalar(v)}"
+                      for k, v in sorted(value.items())]
+        else:
+            lines.append(f"{key}: {_yaml_scalar(value)}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")

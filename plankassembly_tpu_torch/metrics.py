@@ -103,6 +103,43 @@ def metric_sums(pred_samples, gt_samples, valid, end: int = 512, dof: int = 6,
     return (prec * v).sum(), (rec * v).sum(), (f1 * v).sum(), v.sum()
 
 
+class Criterion:
+    """Macro-averaged running precision / recall / F1 (the reference's
+    metric, `plankassembly_tpu/metrics.py::Criterion`), on host floats;
+    updates take scalars or arrays (summed)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.precision = 0.0
+        self.recall = 0.0
+        self.fmeasure = 0.0
+        self.total = 0
+
+    def update(self, prec, rec, f1, count: int = 1):
+        self.precision += float(np.sum(np.asarray(prec)))
+        self.recall += float(np.sum(np.asarray(rec)))
+        self.fmeasure += float(np.sum(np.asarray(f1)))
+        self.total += int(count)
+
+    def update_batch(self, prec, rec, f1, valid_mask=None):
+        prec, rec, f1 = np.asarray(prec), np.asarray(rec), np.asarray(f1)
+        if valid_mask is not None:
+            mask = np.asarray(valid_mask)
+            prec, rec, f1 = prec[mask], rec[mask], f1[mask]
+        self.update(prec, rec, f1, count=prec.size)
+
+    def compute(self):
+        total = max(self.total, 1)
+        return (self.precision / total, self.recall / total,
+                self.fmeasure / total)
+
+
+def build_criterion() -> Criterion:
+    return Criterion()
+
+
 LARGE_COST_VALUE = 100000
 
 

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-All sources in `plankassembly_tpu_torch/csrc/*.cu` compile with one `nvcc`
-call into one shared library with a plain C interface, loaded with
-`ctypes`. No source includes PyTorch's headers, so the build takes seconds,
-not the minutes a `torch.utils.cpp_extension` build takes. The library goes
+Each source in `plankassembly_tpu_torch/csrc/*.cu` compiles with its own
+`nvcc -c`, all started at once, and one more `nvcc` call links the objects
+into one shared library with a plain C interface, loaded with `ctypes`.
+No source includes PyTorch's headers, so the build takes seconds, not the
+minutes a `torch.utils.cpp_extension` build takes. The library goes
 to `build/torch_kernels/<hash>/` at the repository root, keyed by a hash of
 the sources and flags, at first use; nothing is compiled when a module is
 imported.
@@ -28,7 +29,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]  # -v: registers and spills, in build_log
 LIB_NAME = "libplank_kernels.so"
 
@@ -36,6 +37,7 @@ P = ctypes.c_void_p
 I64 = ctypes.c_longlong
 F32 = ctypes.c_float
 I32 = ctypes.c_int
+U32 = ctypes.c_uint
 
 _lock = threading.Lock()
 _lib = None
@@ -73,15 +75,34 @@ def build() -> str:
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
     cus = [s for s in sources() if s.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
+    objs = [os.path.join(out_dir, os.path.basename(c) + f".{os.getpid()}.o")
+            for c in cus]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, c],
+                               stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True), c)
+             for c, o in zip(cus, objs)]
+    logs = []
+    for proc, c in procs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            for other, _ in procs:
+                other.kill()
+                other.wait()
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) on {c}:\n"
+                               f"{out}")
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+    proc = subprocess.run(link, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+                           f"{' '.join(link)}\n{proc.stdout}\n{proc.stderr}")
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    build_log = "".join(logs) + proc.stdout + proc.stderr
+    for o in objs:
+        os.remove(o)
     os.replace(tmp, lib_path)
     return lib_path
 
@@ -96,6 +117,23 @@ def _declare(lib):
     lib.plank_decode_step.restype = I32
     lib.plank_decode_setup.argtypes = [P]
     lib.plank_decode_setup.restype = I32
+    lib.plank_flash_train_fwd.argtypes = [
+        P, P, P, P, P, P, P, P,             # q, k, v, kv_len, seed, out,
+                                            # out32, stats
+        I64, I64, I64, I64, I64, I64, I64,  # B, H, Hkv, Lq, Lk, Dh, Lk_pad
+        F32, I32, I32, U32, F32, I64,       # sm_scale, causal, dropout,
+                                            # threshold, 1 - rate, plan block
+        I32, P]                             # is_bf16, stream
+    lib.plank_flash_train_fwd.restype = I32
+    lib.plank_flash_train_bwd.argtypes = [
+        P, P, P, P, P, P, P, P, P,          # q, k, v, dout, o32, kv_len,
+                                            # seed, stats, dbuf
+        P, P, P,                            # dq, dk, dv
+        I64, I64, I64, I64, I64, I64,       # B, H, Hkv, Lq, Lk, Dh
+        F32, I32, I32, U32, F32, I64,       # sm_scale, causal, dropout,
+                                            # threshold, 1 - rate, plan block
+        I32, P]                             # is_bf16, stream
+    lib.plank_flash_train_bwd.restype = I32
 
 
 def library():
