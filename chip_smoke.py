@@ -37,13 +37,28 @@ instead of hanging, each printing one line (or a few) when it ends:
    B=64 from init, dropout 0.2, AUG_RATIO 0.1, 20 epochs of one step on
    the training fixture, validation on the serving fixture through the
    decode kernels, then the `last` checkpoint reloaded and compared;
-   losses, ms per step, val P/R/F1, launches of every kernel on that path.
+   losses, ms per step, val P/R/F1, launches of every kernel on that path;
+8. mha_kernels: the MHA decode kernels against their plain versions at
+   the main request's shapes (the last 32 fixture programs through
+   checkpoints/mha_complete_ep59.npz's encoder, bucket 1152, bf16 and
+   f32): cross_attn_decode on int8 and on compute-dtype K/V, and
+   fused_decoder_layer / fused_ffn at a mid-decode step whose caches come
+   from a real run; kernel, plain and bound times (and
+   scaled_dot_product_attention beside the compute-dtype cross_attn_decode,
+   a yardstick only);
+9. mha_serve: ep59 serves the 64 fixture drawings through make_live_backend
+   + BatchingServer with cross_impl "kernel" and "fused", as requests of
+   8, 24 and 32, in bf16 and f32, scored against the JAX reference's
+   golden (plankassembly_tpu_torch/fixtures/serve64_mha_jax_golden.npz);
+   then the last 32 programs through each path's kernels and its plain
+   versions on the same memory; launches of every kernel on each path.
 
 With --phases, only the named phases run, and no result line is printed.
 It then prints the kernels' JSON line, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Any failed check exits non-zero
 before that line. Without CUDA it exits non-zero and prints no result.
 """
+import contextlib
 import faulthandler
 import gzip
 import json
@@ -59,6 +74,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "checkpoints", "gqa_complete_ep221.npz")
+MHA_CKPT = os.path.join(ROOT, "checkpoints", "mha_complete_ep59.npz")
 FIXTURES = os.path.join(ROOT, "plankassembly_tpu_torch", "fixtures")
 DEVICE = "cuda"
 
@@ -68,7 +84,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 # watchdog budget of each phase, seconds
 BUDGET = {"device": 240, "flash": 180, "decode": 240, "serve": 300,
-          "train_kernel": 300, "train_step": 240, "fit": 420}
+          "train_kernel": 300, "train_step": 240, "fit": 420,
+          "mha_kernels": 240, "mha_serve": 420}
 PHASES = tuple(BUDGET)
 
 # tolerances (the plain versions accumulate in f32 like the kernels; the
@@ -108,6 +125,22 @@ STEP_TOL = {"f32": {"loss": 1e-4, "acc": 2e-3, "norm": 1e-3, "probe": 1e-2,
             "bf16": {"loss": 2e-2, "acc": 1e-2, "norm": 5e-2, "probe": 0.25,
                      "bk": 5e-3}}
 FIT_EPOCHS = 20
+PEAK_INT8_OPS = 1979e12
+# cross_attn_decode against its plain version: both compute in f32 from
+# the same inputs, in another order (~1e-6 of the output's scale)
+CROSS_TOL = 1e-4
+# fused_decoder_layer against its plain version at a mid-decode step:
+# every integer sum is exact and the new K/V rows must be equal; the float
+# work around the sums is in another order. Each row of x_out is held to
+# FUSED_ROW_TOL of that row's largest value: sound kernels stay below
+# 4e-5 of it (f32) and the plain version with one weight scale for all
+# the cross chunks of a row (a planted fault, which the check must catch)
+# differs by more
+FUSED_ROW_TOL = 1e-4
+FFN_TOL = 1e-4                 # fused_ffn: f32 sums in another order
+MID_STEP, MID_LAYER = 48, 3    # where the fused layer is checked
+MHA_F1_TOL = {"bf16": 0.01, "f32": 0.002}   # kernel path vs the JAX golden
+FUSED_PLAIN_F1_TOL = 0.005     # fused kernels vs their plain versions
 
 
 class CheckFailed(Exception):
@@ -145,6 +178,36 @@ def cuda_ms(fn, reps=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, reps=10, warmup=2):
+    """Device time of one fn() call in ms: the CUDA kernels it launches,
+    summed over `reps` calls under torch.profiler, over reps. Unlike
+    cuda_ms it leaves out the gaps while the host prepares the next launch,
+    which for a wrapper whose host work outlasts its kernels (the decode
+    kernels at serving batch) are most of the events' span."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    # a profiling session now and then records no device activity at all
+    # (seen on the H100 after the training phases); such a session is
+    # taken again, up to twice
+    for attempt in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                us += float(getattr(e, "self_device_time_total",
+                                    getattr(e, "self_cuda_time_total", 0.0)))
+        if us > 0:
+            break
+        log(f"  the profiler saw no device time (session {attempt + 1})")
+    check(us > 0, "the profiler saw no device time")
+    return us / 1e3 / reps
 
 
 class Phase:
@@ -350,7 +413,7 @@ def phase_decode(params, dims, batch, gt, bucket):
 
 
 # ---------------------------------------------------------------- phase 4
-def serve(params, cfg, packed, bucket, cd):
+def serve(params, cfg, packed, bucket, cd, cross_impl="persistent"):
     """All fixture drawings through BatchingServer as requests of
     REQUESTS programs (each request's programs submitted concurrently).
     Returns (samples, attach (N, S) numpy, backend stats, wall seconds)."""
@@ -360,7 +423,7 @@ def serve(params, cfg, packed, bucket, cd):
 
     backend, meta = make_live_backend(params, cfg, batch=max(REQUESTS),
                                       bucket=bucket, compute_dtype=cd,
-                                      device=DEVICE)
+                                      device=DEVICE, cross_impl=cross_impl)
     stats = {"seconds": 0.0, "steps": 0, "calls": 0}
 
     def timed_backend(request):
@@ -830,6 +893,419 @@ def phase_fit(train_infos, serve_infos, tmp):
     return {"launches": counts, "ms_per_step": ms_step}
 
 
+# ------------------------------------------------------------ phases 8-9
+def _bound(nbytes, ops):
+    """(bound ms, what sets it) from bytes moved and (operations, peak
+    rate) pairs."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(n / peak for n, peak in ops) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+class _plain:
+    """Within the block, the decode paths call the kernels' plain versions
+    (on the card) in place of the kernels."""
+
+    def __enter__(self):
+        from plankassembly_tpu_torch.ops import cross_decode as CD
+        from plankassembly_tpu_torch.ops import fused_decode as FD
+        self.saved = (CD.cross_attn_decode, FD.fused_decoder_layer)
+        CD.cross_attn_decode = CD.cross_attn_decode_reference
+        FD.fused_decoder_layer = FD.fused_decoder_layer_reference
+        return self
+
+    def __exit__(self, *exc):
+        from plankassembly_tpu_torch.ops import cross_decode as CD
+        from plankassembly_tpu_torch.ops import fused_decode as FD
+        CD.cross_attn_decode, FD.fused_decoder_layer = self.saved
+        return False
+
+
+def cross_case(q, k, v, bias, ks, vs, real, H, timing):
+    """cross_attn_decode against its plain version on one set of inputs;
+    with timing, kernel / plain / bound ms (and SDPA's where it computes
+    the same function: compute-dtype K/V, no scales): `ms` keys by CUDA
+    events around the calls, `device_ms` keys the kernels' own time."""
+    from plankassembly_tpu_torch.ops import cross_decode as CD
+    BH, Dh = q.shape
+    Li = k.shape[1]
+    sm = 1.0 / math.sqrt(Dh)
+    got = CD.cross_attn_decode(q, k, v, bias, ks, vs, sm_scale=sm)
+    ref = CD.cross_attn_decode_reference(q, k, v, bias, ks, vs, sm_scale=sm)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "cross_attn_decode not finite")
+    res = {"err": (got - ref).abs().max().item(),
+           "scale": ref.abs().max().item(),
+           "shape": (f"B*H={BH} Li={Li} Dh={Dh}, q {_dtype_name(q)}, K/V "
+                     f"{_dtype_name(k)}")}
+    if timing:
+        def kernel():
+            return CD.cross_attn_decode(q, k, v, bias, ks, vs, sm_scale=sm)
+
+        def plain():
+            return CD.cross_attn_decode_reference(q, k, v, bias, ks, vs,
+                                                  sm_scale=sm)
+        _time(res, "", kernel)
+        _time(res, "plain_", plain, reps=5, warmup=1)
+        res["library_ms"] = res["library_device_ms"] = None
+        if ks is None:
+            B = BH // H
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            args = (q.reshape(B, H, 1, Dh), k.reshape(B, H, Li, Dh),
+                    v.reshape(B, H, Li, Dh))
+            mask = bias.reshape(B, H, 1, Li).to(q.dtype)
+            _time(res, "library_", lambda: sdpa(*args, attn_mask=mask,
+                                                scale=sm))
+        # q read, out written, the scales, and K, V and bias of each
+        # (row, real key) once: masked keys weigh exactly 0
+        nbytes = (q.numel() * q.element_size() + BH * Dh * 4
+                  + (2 * BH * 4 if ks is not None else 0)
+                  + H * real * (2 * Dh * k.element_size() + 4))
+        res["bound_ms"], res["bound_by"] = _bound(
+            nbytes, [(4.0 * Dh * H * real, PEAK_FLOPS[q.dtype])])
+    return res
+
+
+def _dtype_name(x):
+    return str(x.dtype).replace("torch.", "").replace("bfloat16", "bf16") \
+        .replace("float32", "f32")
+
+
+@contextlib.contextmanager
+def _patched(module, **attrs):
+    """Set module attributes for the duration of the block."""
+    saved = {name: getattr(module, name) for name in attrs}
+    for name, value in attrs.items():
+        setattr(module, name, value)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(module, name, value)
+
+
+def _time(res, prefix, fn, reps=20, warmup=3):
+    """res[prefix + "ms"]: CUDA events around the calls, as every kernel's
+    `ms`; res[prefix + "device_ms"]: the device time of its kernels."""
+    res[f"{prefix}ms"] = cuda_ms(fn, reps=reps, warmup=warmup)
+    res[f"{prefix}device_ms"] = kernel_ms(fn, reps=reps, warmup=warmup)
+
+
+def fused_bound(dims, cd, B, t, real, ffn_only=False):
+    """Least time of fused_decoder_layer (with its fused_ffn) or of
+    fused_ffn alone at step t: weights, biases and norms once, x in and
+    out, the new K/V rows; the self cache's t keys and the cross K/V of
+    each row's real keys with their scales, the cross bias (shared by the
+    heads) once per real key; the products in the compute dtype, the
+    integer attention sums at the int8 rate."""
+    D, F, H, Dh = (dims.num_model, dims.num_feedforward, dims.num_head,
+                   dims.head_dim)
+    el = torch.tensor([], dtype=cd).element_size()
+    ffn_w = 2 * D * F * el + (F + D + 2 * D) * 4
+    ffn_ops = 2.0 * B * 2 * D * F
+    if ffn_only:
+        return _bound(ffn_w + 2 * B * D * 4, [(ffn_ops, PEAK_FLOPS[cd])])
+    att_w = 6 * D * D * el + (3 * D + 3 * D + 4 * D) * 4
+    nbytes = (att_w + ffn_w + 2 * B * D * 4 + 2 * B * D + 2 * B * H * 4
+              + B * H * t * (2 * Dh + 2 * 4)
+              + H * real * 2 * Dh + real * 4 + 2 * B * H * 4)
+    mm = 2.0 * B * 6 * D * D + ffn_ops
+    att = 4.0 * Dh * H * (B * t + real)
+    return _bound(nbytes, [(mm, PEAK_FLOPS[cd]), (att, PEAK_INT8_OPS)])
+
+
+def phase_mha_kernels(params, dims, req, bucket):
+    from plankassembly_tpu_torch.decode import (
+        FusedDecode, _pad_or_crop, precompute_cross_kv,
+    )
+    from plankassembly_tpu_torch.models.model import encode
+    from plankassembly_tpu_torch.ops import cross_decode as CD
+    from plankassembly_tpu_torch.ops import fused_decode as FD
+
+    H, Dh = dims.num_head, dims.head_dim
+    out = {}
+    for name, cd in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        timing = name == "bf16"
+        inputs = _pad_or_crop(dict(req), bucket, dims)
+        mask = inputs["input_mask"]
+        with torch.no_grad():
+            memory = encode(params, inputs, dims, compute_dtype=cd,
+                            flash=True)
+            B, Li = memory.shape[:2]
+            real = int((~mask).sum().item())
+            # cross_attn_decode on layer MID_LAYER's real K/V, a seeded q
+            ck, cv = precompute_cross_kv(params, memory, dims, cd)
+            k = ck[MID_LAYER].permute(0, 2, 1, 3).reshape(B * H, Li, Dh)
+            v = cv[MID_LAYER].permute(0, 2, 1, 3).reshape(B * H, Li, Dh)
+            del ck, cv
+            k, v = k.contiguous(), v.contiguous()
+            bias = torch.where(mask, -1e9, 0.0)[:, None, :].expand(
+                B, H, Li).reshape(B * H, Li).contiguous()
+            g = torch.Generator(device=DEVICE).manual_seed(6)
+            q = torch.randn((B * H, Dh), generator=g, device=DEVICE).to(cd)
+            kq, ks = CD.quantize_rows(k, (1, 2))
+            vq, vs = CD.quantize_rows(v, (1, 2))
+            for form, args in (("int8", (kq, vq, ks, vs)),
+                               (name, (k, v, None, None))):
+                r = cross_case(q, args[0], args[1], bias, args[2], args[3],
+                               real, H, timing)
+                tag = (f"cross_attn_decode {r['shape']} ({real} real "
+                       f"(row, key) pairs per head)")
+                line = (f"{tag}: max_abs_err {r['err']:.3e} (scale "
+                        f"{r['scale']:.3e}, tol {CROSS_TOL:g} of it)")
+                if timing:
+                    lib = ("null (no one call takes int8 K/V with scales)"
+                           if r["library_ms"] is None else
+                           f"{r['library_ms']:.4f} ms (sdpa; device "
+                           f"{r['library_device_ms']:.4f} ms)")
+                    line += (f"; events: kernel {r['ms']:.4f} ms, plain "
+                             f"{r['plain_ms']:.4f} ms, library {lib}; "
+                             f"device: kernel {r['device_ms']:.4f} ms, plain "
+                             f"{r['plain_device_ms']:.4f} ms; bound "
+                             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+                log(line)
+                check(r["err"] <= CROSS_TOL * max(r["scale"], 1e-6),
+                      f"{tag} disagrees")
+                out[("cross", name, form)] = r
+            del k, v, kq, vq
+
+            # fused_decoder_layer at step MID_STEP, layer MID_LAYER, with
+            # caches from a real run of the fused path
+            dec = FusedDecode(params, memory, mask, dims, cd)
+            for t in range(MID_STEP):
+                dec.step(t)
+            x = dec.embed(MID_STEP)
+            for l in range(MID_LAYER):
+                x = dec.layer(l, x, MID_STEP)
+            largs = (x, MID_STEP, *dec.layer_args(MID_LAYER))
+            kw = dict(H=H, Dh=Dh, sm_scale=1.0 / math.sqrt(Dh), cd=cd)
+            got = FD.fused_decoder_layer(*largs, **kw)
+            ref = FD.fused_decoder_layer_reference(*largs, **kw)
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(a.float()).all()) for a in got),
+                  "fused_decoder_layer output not finite")
+            x_err = (got[0] - ref[0]).abs().max().item()
+            x_scale = ref[0].abs().max().item()
+            row_err = ((got[0] - ref[0]).abs().amax(dim=1)
+                       / ref[0].abs().amax(dim=1)).max().item()
+            # the planted fault: one weight scale for all of a row's cross
+            # chunks (chunk width Li) in the plain version
+            with _patched(FD, chunk_width=lambda Li: Li):
+                bad = FD.fused_decoder_layer_reference(*largs, **kw)[0]
+            bad_err = ((got[0] - bad).abs().amax(dim=1)
+                       / bad.abs().amax(dim=1)).max().item()
+            nk_diff = int((got[1] != ref[1]).sum().item())
+            nv_diff = int((got[2] != ref[2]).sum().item())
+            nk_step = int((got[1].int() - ref[1].int()).abs().max().item())
+            nv_step = int((got[2].int() - ref[2].int()).abs().max().item())
+            s_err = max(((got[i] - ref[i]).abs() / ref[i].abs()).max().item()
+                        for i in (3, 4))
+            w1, b1, w2, b2, ln = (largs[2 + i] for i in (8, 9, 10, 11, 12))
+            fx = got[0]  # the FFN on a realistic residual stream
+            f_got = FD.fused_ffn(fx, w1, b1, w2, b2, ln[4:6], cd=cd)
+            f_ref = FD.fused_ffn_reference(fx, w1, b1, w2, b2, ln[4:6], cd=cd)
+            torch.cuda.synchronize()
+            f_err = (f_got - f_ref).abs().max().item()
+            f_scale = f_ref.abs().max().item()
+            shape = (f"B={B} Li={Li} t={MID_STEP} layer {MID_LAYER} "
+                     f"{name}")
+            tag = f"fused_decoder_layer {shape}"
+            line = (f"{tag}: x_out max_abs_err {x_err:.3e} (scale "
+                    f"{x_scale:.3e}); worst row err / row max {row_err:.3e} "
+                    f"(tol {FUSED_ROW_TOL:g}), against the plain version with "
+                    f"one cross weight scale per row (planted fault) "
+                    f"{bad_err:.3e} (must exceed the tol); nk "
+                    f"differs in {nk_diff} of {got[1].numel()} (max step "
+                    f"{nk_step}), nv in {nv_diff} (max step {nv_step}); "
+                    f"nks/nvs rel err {s_err:.3e}; fused_ffn max_abs_err "
+                    f"{f_err:.3e} (scale {f_scale:.3e}, tol {FFN_TOL:g})")
+            res = {"err": x_err, "ffn_err": f_err, "nk_diff": nk_diff,
+                   "nv_diff": nv_diff, "row_err": row_err,
+                   "planted_row_err": bad_err, "shape": shape,
+                   "ffn_shape": f"B={B} D={dims.num_model} "
+                                f"F={dims.num_feedforward} {name}"}
+            if timing:
+                _time(res, "", lambda: FD.fused_decoder_layer(*largs, **kw))
+                _time(res, "plain_",
+                      lambda: FD.fused_decoder_layer_reference(*largs, **kw),
+                      reps=5, warmup=1)
+                _time(res, "ffn_", lambda: FD.fused_ffn(
+                    fx, w1, b1, w2, b2, ln[4:6], cd=cd))
+                _time(res, "plain_ffn_", lambda: FD.fused_ffn_reference(
+                    fx, w1, b1, w2, b2, ln[4:6], cd=cd), reps=5, warmup=1)
+                res["bound_ms"], res["bound_by"] = fused_bound(
+                    dims, cd, B, MID_STEP, real)
+                res["ffn_bound_ms"], res["ffn_bound_by"] = fused_bound(
+                    dims, cd, B, MID_STEP, real, ffn_only=True)
+                line += (f"; layer (with its ffn): events {res['ms']:.4f} "
+                         f"ms, plain {res['plain_ms']:.4f} ms; device "
+                         f"{res['device_ms']:.4f} ms, plain "
+                         f"{res['plain_device_ms']:.4f} ms; bound "
+                         f"{res['bound_ms']:.4f} ms ({res['bound_by']}); "
+                         f"ffn: events {res['ffn_ms']:.4f} ms, plain "
+                         f"{res['plain_ffn_ms']:.4f} ms; device "
+                         f"{res['ffn_device_ms']:.4f} ms, plain "
+                         f"{res['plain_ffn_device_ms']:.4f} ms; bound "
+                         f"{res['ffn_bound_ms']:.4f} ms "
+                         f"({res['ffn_bound_by']}); library null")
+            log(line)
+            check(row_err <= FUSED_ROW_TOL, f"{tag}: x_out disagrees")
+            check(bad_err > FUSED_ROW_TOL,
+                  f"{tag}: the check does not catch the planted fault")
+            check(f_err <= FFN_TOL * max(f_scale, 1.0),
+                  f"{tag}: fused_ffn disagrees")
+            check(s_err <= 1e-5, f"{tag}: nks/nvs disagree")
+            check(nk_diff == 0 and nv_diff == 0, f"{tag}: nk/nv differ")
+            out[("fused", name)] = res
+            del dec, memory
+        torch.cuda.empty_cache()
+    return out
+
+
+def _agreement(samples, gold, end):
+    """Share of equal tokens over each golden program up to and including
+    its END (trailing tokens past a batch's exit depend on the batch)."""
+    same = total = 0
+    for a, b in zip(samples, gold):
+        n = len(_upto_end(b, end))
+        same += int((np.asarray(a)[:n] == b[:n]).sum())
+        total += n
+    return same / total
+
+
+# each kernel's launch counter: (module, attribute)
+COUNTERS = {"flash_attention": ("attention", "launches"),
+            "cross_attn_decode": ("cross_decode", "launches"),
+            "fused_decoder_layer": ("fused_decode", "layer_launches"),
+            "fused_ffn": ("fused_decode", "ffn_launches"),
+            "persistent_greedy_decode": ("persistent_decode", "launches")}
+
+
+def _counter_module(name):
+    import importlib
+    return importlib.import_module(
+        f"plankassembly_tpu_torch.ops.{COUNTERS[name][0]}")
+
+
+def _launch_counts():
+    return {n: getattr(_counter_module(n), COUNTERS[n][1]) for n in COUNTERS}
+
+
+def _reset_counts():
+    for n in COUNTERS:
+        setattr(_counter_module(n), COUNTERS[n][1], 0)
+
+
+# the kernels each path must launch
+PATH_KERNELS = {"kernel": ("flash_attention", "cross_attn_decode"),
+                "fused": ("flash_attention", "fused_decoder_layer",
+                          "fused_ffn")}
+
+
+def phase_mha_serve(params, cfg, dims, packed, golden, bucket, req):
+    from plankassembly_tpu_torch.decode import _pad_or_crop, decode_from_memory
+    from plankassembly_tpu_torch.metrics import batch_scores
+    from plankassembly_tpu_torch.models.model import encode
+
+    gt = torch.from_numpy(golden["gt_samples"])
+    end = dims.end
+    counts = {}
+    for name, cd in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        for impl in ("kernel", "fused"):
+            ref = "xla" if impl == "kernel" else "mxu"
+            _reset_counts()
+            samples, attach, stats, wall = serve(params, cfg, packed, bucket,
+                                                 cd, cross_impl=impl)
+            c = _launch_counts()
+            check(samples.shape == (len(packed), dims.max_output_length),
+                  f"samples shape {samples.shape}")
+            prec, rec, f1 = batch_scores(torch.from_numpy(samples), gt)
+            gold = golden[f"{ref}_{name}_samples"]
+            agree = _agreement(samples, gold, end)
+            same = np.mean([np.array_equal(_upto_end(a, end),
+                                           _upto_end(b, end))
+                            for a, b in zip(samples, gold)])
+            f1m = f1.mean().item()
+            gold_f1 = float(golden[f"{ref}_{name}_f1"].mean())
+            line = (f"mha_serve {impl} {name}: {len(packed)} programs in "
+                    f"{stats['calls']} batches: P {prec.mean():.6f} R "
+                    f"{rec.mean():.6f} F1 {f1m:.6f} vs JAX {ref}-int8 golden "
+                    f"F1 {gold_f1:.6f} (gap {f1m - gold_f1:+.6f}); token "
+                    f"agreement with it {agree:.4f}, identical programs "
+                    f"{same:.4f}; {len(packed) / stats['seconds']:.2f} "
+                    f"programs/s in the backend, "
+                    f"{stats['seconds'] * 1e3 / stats['steps']:.3f} ms/step "
+                    f"over {stats['steps']} steps; launches {c}")
+            if impl == "fused" and name == "f32":
+                sub = golden["fused_f32_samples"]
+                sub_same = [np.array_equal(_upto_end(a, end),
+                                           _upto_end(b, end))
+                            for a, b in zip(samples, sub)]
+                sub_attach = all(np.array_equal(
+                    attach[i, :len(_upto_end(sub[i], end))],
+                    golden["fused_f32_attach"][i, :len(_upto_end(sub[i], end))])
+                    for i in range(len(sub)))
+                line += (f"; first {len(sub)} programs against JAX "
+                         f"fused-interpret: identical {sub_same}, attach "
+                         f"equal {sub_attach}")
+            log(line)
+            if impl == "kernel":
+                check(abs(f1m - gold_f1) <= MHA_F1_TOL[name],
+                      f"mha_serve kernel {name}: F1 {f1m} vs golden {gold_f1}")
+            else:
+                check(agree >= 0.8, f"mha_serve fused {name}: token agreement "
+                      f"with the mxu golden {agree}")
+            if impl == "fused" and name == "f32":
+                check(all(sub_same) and sub_attach, "mha_serve fused f32: "
+                      "not the JAX fused-interpret programs")
+            check(all(c[k] > 0 for k in PATH_KERNELS[impl]),
+                  f"mha_serve {impl} {name}: a kernel of the path did not "
+                  f"run: {c}")
+            check(c["persistent_greedy_decode"] == 0,
+                  f"mha_serve {impl} {name}: the persistent decode ran")
+            counts[(impl, name)] = c
+
+        # the last 32 programs through each path's kernels and its plain
+        # versions, on the same memory
+        inputs = _pad_or_crop(dict(req), bucket, dims)
+        with torch.no_grad():
+            memory = encode(params, inputs, dims, compute_dtype=cd,
+                            flash=True)
+        gt_last = gt[-memory.shape[0]:]
+        for impl in ("kernel", "fused"):
+            def run():
+                out = decode_from_memory(params, memory,
+                                         inputs["input_mask"], dims,
+                                         compute_dtype=cd, kv_quant=True,
+                                         cross_impl=impl)
+                torch.cuda.synchronize()
+                return out
+            t0 = time.perf_counter()
+            k_out = run()
+            k_s = time.perf_counter() - t0
+            with _plain():
+                t0 = time.perf_counter()
+                p_out = run()
+                p_s = time.perf_counter() - t0
+            ks_, ps_ = k_out["samples"].cpu(), p_out["samples"].cpu()
+            agree = _agreement(ks_.numpy(), ps_.numpy(), end)
+            f1_k = batch_scores(ks_, gt_last)[2].mean().item()
+            f1_p = batch_scores(ps_, gt_last)[2].mean().item()
+            log(f"mha {impl} {name} B={memory.shape[0]} kernels vs plain "
+                f"versions on the same memory: token agreement {agree:.4f}, "
+                f"F1 {f1_k:.6f} vs {f1_p:.6f}; {k_s * 1e3:.1f} ms "
+                f"({k_out['num_steps']} steps) vs {p_s * 1e3:.1f} ms "
+                f"({p_out['num_steps']} steps), host clock")
+            check(abs(f1_k - f1_p) <= FUSED_PLAIN_F1_TOL,
+                  f"mha {impl} {name}: F1 {f1_k} vs plain {f1_p}")
+            check(agree >= 0.9, f"mha {impl} {name}: token agreement with "
+                  f"the plain versions {agree}")
+        del memory
+        torch.cuda.empty_cache()
+    return counts
+
+
 # ------------------------------------------------------------------- main
 def _entry(name, source, replaces, launches, err, r, prefix="",
            library_key=None):
@@ -927,6 +1403,25 @@ def main() -> int:
         if "fit" in phases:
             with Phase("fit"):
                 res["fit"] = phase_fit(train_infos, infos, tmp)
+        if {"mha_kernels", "mha_serve"} & set(phases):
+            mha_params, mha_cfg = load_checkpoint(MHA_CKPT, device=DEVICE)
+            mha_dims = ModelDims.from_config(mha_cfg)
+            mha_golden = np.load(os.path.join(FIXTURES,
+                                              "serve64_mha_jax_golden.npz"))
+            mha_bucket = int(mha_golden["bucket"])
+            mha_packed = [pack_info_dict(info, mha_cfg) for info in infos]
+            mha_req = {k: torch.from_numpy(np.stack(
+                [p[k] for p in mha_packed[last]])).to(DEVICE)
+                for k in mha_packed[0]}
+        if "mha_kernels" in phases:
+            with Phase("mha_kernels"):
+                res["mha_kernels"] = phase_mha_kernels(mha_params, mha_dims,
+                                                       mha_req, mha_bucket)
+        if "mha_serve" in phases:
+            with Phase("mha_serve"):
+                res["mha_serve"] = phase_mha_serve(
+                    mha_params, mha_cfg, mha_dims, mha_packed, mha_golden,
+                    mha_bucket, mha_req)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if set(phases) != set(PHASES):
         log(f"ran phases {phases} only; no result line")
@@ -969,6 +1464,38 @@ def main() -> int:
          "bound_by": decode["bound_by"], "library_ms": None},
         fwd, bwd,
     ]
+    mk, ms = res["mha_kernels"], res["mha_serve"]
+    cross, cross_lib = mk[("cross", "bf16", "int8")], \
+        mk[("cross", "bf16", "bf16")]
+    fused = mk[("fused", "bf16")]
+    entry = _entry("cross_attn_decode",
+                   "plankassembly_tpu_torch/csrc/cross_decode.cu",
+                   "plankassembly_tpu/ops/cross_decode.py:76",
+                   ms[("kernel", "bf16")]["cross_attn_decode"], cross["err"],
+                   cross)
+    # the main path's form (int8 K/V, bf16 q); the same kernel on bf16 K/V,
+    # where scaled_dot_product_attention computes the same function. `ms`
+    # keys are CUDA events around the calls, as in the entries above;
+    # `device_ms` keys the kernels' own device time (torch.profiler)
+    device_keys = ("device_ms", "plain_device_ms")
+    entry.update({k: cross[k] for k in ("shape",) + device_keys})
+    entry["bf16_kv"] = {k: cross_lib[k] for k in (
+        "shape", "err", "ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by") + device_keys + ("library_device_ms",)}
+    kernels.append(entry)
+    src = "plankassembly_tpu_torch/csrc/fused_decode.cu"
+    layer = _entry("fused_decoder_layer", src,
+                   "plankassembly_tpu/ops/fused_decode.py:445",
+                   ms[("fused", "bf16")]["fused_decoder_layer"],
+                   fused["err"], fused)
+    layer.update({k: fused[k] for k in device_keys})
+    layer["shape"] = f"{fused['shape']}, with its fused_ffn"
+    ffn = _entry("fused_ffn", src, "plankassembly_tpu/ops/fused_decode.py:336",
+                 ms[("fused", "bf16")]["fused_ffn"], fused["ffn_err"], fused,
+                 prefix="ffn_")
+    ffn.update(shape=fused["ffn_shape"], device_ms=fused["ffn_device_ms"],
+               plain_device_ms=fused["plain_ffn_device_ms"])
+    kernels += [layer, ffn]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

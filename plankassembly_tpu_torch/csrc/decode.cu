@@ -103,140 +103,34 @@ __global__ void embed_kernel(const float* __restrict__ value,
   }
 }
 
-// ------------------------------------------------------------ layernorm
-template <typename OutT>
-__global__ void layernorm_kernel(const float* __restrict__ x,
-                                 const float* __restrict__ scale,
-                                 const float* __restrict__ bias, OutT* out,
-                                 long long out_stride, int D,
-                                 const int* halt) {
-  __shared__ float scratch[32];
-  if (*halt) return;
-  const int b = blockIdx.x;
-  const float* xr = x + (long long)b * D;
-  float s = 0.f;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) s += xr[d];
-  const float mean = block_sum(s, scratch) / D;
-  float v = 0.f;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float c = xr[d] - mean;
-    v += c * c;
-  }
-  const float var = block_sum(v, scratch) / D;
-  const float inv = 1.f / sqrtf(var + 1e-5f);
-  OutT* o = out + (long long)b * out_stride;
-  for (int d = threadIdx.x; d < D; d += blockDim.x)
-    o[d] = Elem<OutT>::store((xr[d] - mean) * inv * scale[d] + bias[d]);
-}
-
 // ----------------------------------------------------------------- GEMM
-// out = epilogue(A (M x K, row stride lda) @ W (K x N, row-major) + bias).
-// The decode's products are skinny (M = rows <= 64, N and K 512-1027):
-// tiled over (M, N) alone they give 8-34 blocks that each walk all of K,
-// so the card sits mostly idle. Here K is split too: block (n, m, z)
-// covers kKSlice rows of K for a 32 x 64 output tile (256 threads, 2 x 4
-// outputs each, K staged in shared memory as f32, f32 accumulation) and
-// writes its partial tile to the workspace. The last block to finish a
-// tile — it learns so from an atomic counter, it never waits — sums the
-// partials in slice order (deterministic) and applies the epilogue.
-enum Epilogue { kStore = 0, kRelu = 1, kResidual = 2 };
-constexpr int kBM = 32, kBN = 64, kBK = 32, kKSlice = 64;
-
+// The split-K GEMM of common.cuh, with this loop's epilogue: the product
+// rounds to T, then its bias adds in T (as x @ W + b does in the compute
+// dtype), then relu, a residual add into the f32 stream, or a store.
 template <typename T, typename OutT, int EPI>
-__device__ __forceinline__ void epilogue(float acc, const T* bias, int n,
-                                         OutT* dst) {
-  // the product rounds to T, then its bias adds in T (as x @ W + b does
-  // in the compute dtype)
-  float y = Elem<T>::round(Elem<T>::round(acc) + Elem<T>::load(bias[n]));
-  if constexpr (EPI == kRelu) y = fmaxf(y, 0.f);
-  if constexpr (EPI == kResidual)
-    *dst += y;  // OutT is float here
-  else
-    *dst = Elem<OutT>::store(y);
-}
-
-template <typename T, typename OutT, int EPI>
-__global__ void __launch_bounds__(256)
-    gemm_kernel(const T* __restrict__ A, long long lda,
-                const T* __restrict__ W, const T* __restrict__ bias, int M,
-                int N, int K, OutT* out, long long ldo, float* ws,
-                int* counters, const int* halt) {
-  __shared__ float as[kBK][kBM + 1];
-  __shared__ float ws_tile[kBK][kBN];
-  __shared__ int is_last;
-  if (*halt) return;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int z = blockIdx.z, nsplit = gridDim.z;
-  const int kbeg = z * kKSlice, kend = min(K, kbeg + kKSlice);
-  float acc[2][4] = {};
-  for (int k0 = kbeg; k0 < kend; k0 += kBK) {
-    for (int idx = threadIdx.x; idx < kBM * kBK; idx += 256) {
-      int r = idx / kBK, kk = idx % kBK;
-      int m = m0 + r, kq = k0 + kk;
-      as[kk][r] = (m < M && kq < kend)
-                      ? Elem<T>::load(A[(long long)m * lda + kq]) : 0.f;
-    }
-    for (int idx = threadIdx.x; idx < kBK * kBN; idx += 256) {
-      int kk = idx / kBN, c = idx % kBN;
-      int kq = k0 + kk, n = n0 + c;
-      ws_tile[kk][c] = (kq < kend && n < N)
-                           ? Elem<T>::load(W[(long long)kq * N + n]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a0 = as[kk][ty * 2], a1 = as[kk][ty * 2 + 1];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float w = ws_tile[kk][tx * 4 + j];
-        acc[0][j] += a0 * w;
-        acc[1][j] += a1 * w;
-      }
-    }
-    __syncthreads();
+struct RoundedEpilogue {
+  const T* bias;
+  OutT* out;
+  long long ldo;
+  __device__ __forceinline__ void operator()(int m, int n, float acc) const {
+    float y = Elem<T>::round(Elem<T>::round(acc) + Elem<T>::load(bias[n]));
+    if constexpr (EPI == kRelu) y = fmaxf(y, 0.f);
+    OutT* dst = out + (long long)m * ldo + n;
+    if constexpr (EPI == kResidual)
+      *dst += y;  // OutT is float here
+    else
+      *dst = Elem<OutT>::store(y);
   }
-  // partial tile -> workspace [z][M][N]; the last block of the tile sums
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int m = m0 + ty * 2 + i, n = n0 + tx * 4 + j;
-      if (m < M && n < N) ws[((long long)z * M + m) * N + n] = acc[i][j];
-    }
-  __threadfence();
-  __syncthreads();
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  if (threadIdx.x == 0)
-    is_last = atomicAdd(&counters[tile], 1) == nsplit - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int m = m0 + ty * 2 + i, n = n0 + tx * 4 + j;
-      if (m >= M || n >= N) continue;
-      float sum = 0.f;
-      for (int zz = 0; zz < nsplit; ++zz)
-        sum += __ldcg(&ws[((long long)zz * M + m) * N + n]);
-      epilogue<T, OutT, EPI>(sum, bias, n, out + (long long)m * ldo + n);
-    }
-  if (threadIdx.x == 0) counters[tile] = 0;  // ready for the next product
-}
+};
 
 template <typename T, typename OutT, int EPI>
 static void gemm(const void* A, long long lda, const void* W,
                  const void* bias, int M, int N, int K, void* out,
                  long long ldo, float* ws, int* counters, const int* halt,
                  cudaStream_t s) {
-  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM,
-            (K + kKSlice - 1) / kKSlice);
-  gemm_kernel<T, OutT, EPI><<<grid, 256, 0, s>>>(
-      static_cast<const T*>(A), lda, static_cast<const T*>(W),
-      static_cast<const T*>(bias), M, N, K, static_cast<OutT*>(out), ldo,
-      ws, counters, halt);
+  RoundedEpilogue<T, OutT, EPI> epi{static_cast<const T*>(bias),
+                                    static_cast<OutT*>(out), ldo};
+  splitk_gemm<T>(A, lda, W, M, N, K, epi, ws, counters, halt, s);
 }
 
 // ------------------------------------------------------- self-attention

@@ -1,29 +1,51 @@
 """Batched greedy decoding of shape programs.
 
-Ports the serving path of `plankassembly_tpu/decode.py`: `greedy_decode`
-crops (or pads) the packed inputs to the caller's `kv_bucket`, runs the
-encoder with fused attention, and hands the memory to
-`ops.persistent_decode.persistent_greedy_decode` — the int8 cross-KV /
-bf16 self-KV greedy loop that `serving.make_live_backend` asks for
-(`kv_quant=True`). Its semantics are those of the JAX package's
-``greedy_decode(kv_quant=True, self_quant=False, cross_impl="xla")``:
+Ports the KV-cached decode of `plankassembly_tpu/decode.py`:
+`greedy_decode` crops (or pads) the packed inputs to the caller's
+`kv_bucket`, runs the encoder with fused attention, and hands the memory to
+`decode_from_memory`, which runs one of the JAX package's decode paths
+(`cross_impl`):
 
-- per-layer cross-attention K/V over the memory, int8 with one symmetric
-  scale per (layer, row, kv head) taken over every memory position;
-- a self K/V cache in the compute dtype, and an f32 cache of the final
-  hidden states for the pointer head;
-- the reference's mixed vocab ‖ pointer ‖ switch sampler (`_mixed_sample`)
-  with its quirks, and early exit once every row has emitted END.
+- "persistent" (the default): `ops.persistent_decode`, the int8 cross-KV /
+  compute-dtype self-KV loop of CUDA kernels; its semantics are JAX's
+  ``cross_impl="xla", kv_quant=True, self_quant=False``;
+- "xla": the plain einsum loop, cross K/V in the compute dtype or int8
+  (`kv_quant`) with the scale taken in the compute dtype;
+- "mxu": the block-diagonal-query form of the same loop, int8 K/V scales
+  folded into the query and the output, and (with `self_quant`, which
+  follows `kv_quant` unless given) an int8 self K/V cache with one scale
+  per appended token; the hidden cache is kept in the compute dtype;
+- "kernel": the "xla" loop with each step's cross-attention in the CUDA
+  kernel `ops.cross_decode.cross_attn_decode` (MHA only: a grouped-query
+  model takes "mxu" on the GPU and "xla" on the CPU, as the JAX package
+  takes "mxu" on its TPU);
+- "fused": every decoder layer of a step in the CUDA kernels
+  `ops.fused_decode.fused_decoder_layer` / `fused_ffn` over int8 self and
+  cross caches (MHA only), with a compute-dtype hidden cache.
+
+Every path ends each step with the reference's mixed vocab ‖ pointer ‖
+switch sampler (`_mixed_sample`) and its quirks, and exits once every row
+has emitted END (rows that ended earlier keep decoding trailing tokens).
 """
 from __future__ import annotations
+
+import math
+import warnings
 
 import numpy as np
 import torch
 
 from plankassembly_tpu_torch.config import ModelDims
-from plankassembly_tpu_torch.models.model import NEG_INF, encode
+from plankassembly_tpu_torch.models.model import (
+    NEG_INF, encode, layer_norm, pointer_structure_mask,
+)
+from plankassembly_tpu_torch.ops import cross_decode as CD
+from plankassembly_tpu_torch.ops import fused_decode as FD
 
 EPS = 1e-6
+IMPLS = ("persistent", "xla", "mxu", "kernel", "fused")
+# steps between two host reads of the all-done flags in the plain loops
+CHECK_EVERY = 8
 
 
 def precompute_cross_kv(params, memory, dims: ModelDims, compute_dtype):
@@ -41,13 +63,14 @@ def precompute_cross_kv(params, memory, dims: ModelDims, compute_dtype):
     return k.reshape(shape), v.reshape(shape)
 
 
-def quantize_cross_kv(x):
-    """Symmetric int8 over (Li, Dh) for each (layer, row, kv head):
-    x (L, B, Li, kvH, Dh) -> (int8 values, f32 scales (L, B, 1, kvH, 1))."""
-    xf = x.float()
-    scale = xf.abs().amax(dim=(2, 4), keepdim=True) / 127.0
-    scale = torch.clamp(scale, min=1e-8)
-    return torch.round(xf / scale).to(torch.int8), scale
+def _quantize_in_dtype(x):
+    """Symmetric int8 over (Li, Dh) for each (layer, row, kv head) of x
+    (L, B, Li, kvH, Dh), as `ops.cross_decode.quantize_rows(x, (2, 4))` but
+    with the scale taken and kept in x's dtype (the JAX "xla" path's `_q`);
+    returns (int8 values, scales (L, B, 1, kvH, 1) in x's dtype)."""
+    scale = torch.clamp(x.abs().amax(dim=(2, 4), keepdim=True) / 127.0,
+                        min=1e-8)
+    return torch.round(x.float() / scale.float()).to(torch.int8), scale
 
 
 def _mixed_sample(heads, dims: ModelDims, struct, pos, h_t, h_cache,
@@ -61,7 +84,9 @@ def _mixed_sample(heads, dims: ModelDims, struct, pos, h_t, h_cache,
     vocab_logits = h_t @ heads["vocab"]["w"] + heads["vocab"]["b"]
     vocab_probs = torch.softmax(vocab_logits, dim=-1)
     feature = h_t @ heads["pointer"]["w"] + heads["pointer"]["b"]
-    pointer_logits = torch.einsum("bd,bsd->bs", feature, h_cache)
+    # a compute-dtype hidden cache promotes to f32, as jnp does
+    pointer_logits = torch.einsum("bd,bsd->bs", feature,
+                                  h_cache.to(feature.dtype))
     pointer_logits = pointer_logits / dims.num_model
     prob = torch.sigmoid(h_t @ heads["switch"]["w"] + heads["switch"]["b"])
 
@@ -112,27 +137,383 @@ def _pad_or_crop(inputs: dict, kv_bucket, dims: ModelDims) -> dict:
     return out
 
 
+def _check_impl(cross_impl):
+    if cross_impl not in IMPLS:
+        raise ValueError(f"unknown cross_impl {cross_impl!r}; one of {IMPLS}")
+
+
 @torch.no_grad()
 def greedy_decode(params, batch: dict, dims: ModelDims,
                   compute_dtype=torch.bfloat16, early_exit=True,
-                  kv_bucket=None):
+                  kv_bucket=None, kv_quant=None, cross_impl="persistent",
+                  self_quant=None):
     """Batched greedy decode on the device of `batch`'s tensors. Returns
     samples (B, S) int32, attach (B, S) int32 (-1 = no pointer) and
     num_steps (int, steps executed)."""
-    from plankassembly_tpu_torch.ops.persistent_decode import (
-        persistent_greedy_decode,
-    )
-
+    _check_impl(cross_impl)
     inputs = {k: v for k, v in batch.items() if k.startswith("input")}
     inputs = _pad_or_crop(inputs, kv_bucket, dims)
     memory = encode(params, inputs, dims, compute_dtype=compute_dtype,
                     flash=True)
-    # The JAX package pads memory to a multiple of 128 here because its
-    # Pallas kernel needs lane-aligned slices (decode.py:298-310); the CUDA
+    # The JAX package pads memory to a multiple of 128 for its persistent
+    # Pallas kernel (lane-aligned slices, decode.py:298-310); the CUDA
     # kernels take any width, so no pad is needed.
-    return persistent_greedy_decode(params, memory, inputs["input_mask"],
-                                    dims, compute_dtype=compute_dtype,
-                                    early_exit=early_exit)
+    return decode_from_memory(params, memory, inputs["input_mask"], dims,
+                              compute_dtype=compute_dtype,
+                              early_exit=early_exit, kv_quant=kv_quant,
+                              cross_impl=cross_impl, self_quant=self_quant)
+
+
+@torch.no_grad()
+def decode_from_memory(params, memory, memory_mask, dims: ModelDims,
+                       compute_dtype=torch.bfloat16, early_exit=True,
+                       kv_quant=None, cross_impl="persistent",
+                       self_quant=None):
+    """KV-cached greedy decode over encoder memory (B, Li, D) with its pad
+    mask (B, Li) (True = pad), by the path `cross_impl` names (see the
+    module docstring). kv_quant: int8 cross K/V (ignored by "persistent"
+    and "fused", which always use it); self_quant: int8 self K/V, "mxu"
+    only (None follows kv_quant)."""
+    _check_impl(cross_impl)
+    explicit_no_quant = kv_quant is False
+    kv_quant = bool(kv_quant)
+    if cross_impl == "persistent":
+        from plankassembly_tpu_torch.ops.persistent_decode import (
+            persistent_greedy_decode,
+        )
+        if explicit_no_quant or self_quant:
+            warnings.warn(
+                "cross_impl='persistent' has int8 cross-KV + compute-dtype "
+                "self-KV semantics built in; kv_quant=False / "
+                "self_quant=True are ignored", stacklevel=2)
+        return persistent_greedy_decode(params, memory, memory_mask, dims,
+                                        compute_dtype=compute_dtype,
+                                        early_exit=early_exit)
+    if cross_impl == "fused":
+        dec = FusedDecode(params, memory, memory_mask, dims, compute_dtype)
+        return dec.run(early_exit)
+    return _decode_cached(params, memory, memory_mask, dims, compute_dtype,
+                          early_exit, kv_quant, self_quant, cross_impl)
+
+
+def _layers(tree, L):
+    return [{k: v[l] for k, v in tree.items()} for l in range(L)]
+
+
+def _embed_step(emb, output, t, dof):
+    """Decoder input at step t: zero at t = 0, else the previous token's
+    value embedding plus its coordinate and plank-position embeddings."""
+    if t == 0:
+        return torch.zeros((output.shape[0], emb["value"].shape[1]),
+                           dtype=emb["value"].dtype, device=output.device)
+    prev = output[:, t - 1].long()
+    return (emb["value"][prev] + emb["coord_out"][(t - 1) % dof][None]
+            + emb["pos_out"][(t - 1) // dof][None])
+
+
+def _run_steps(step, S, early_exit, done, output, attach):
+    """Run step(t) for t = 0, 1, ... until every row is done, as JAX's
+    while_loop does, and return the number of steps it runs. The host reads
+    the done flags only every CHECK_EVERY steps; steps run past the exit
+    only write columns from the exit on, which are reset here."""
+    n = torch.full((), S, dtype=torch.int64, device=done.device)
+    t = 0
+    while t < S:
+        step(t)
+        t += 1
+        if early_exit:
+            n = torch.where((n == S) & done.all(), t, n)
+            if t % CHECK_EVERY == 0 and t < S and bool(done.all()):
+                break
+    if not early_exit:
+        return S
+    n = int(n)
+    output[:, n:] = 0
+    attach[:, n:] = -1
+    return n
+
+
+def _decode_cached(params, memory, memory_mask, dims: ModelDims, cd,
+                   early_exit, kv_quant, self_quant, cross_impl):
+    """The JAX package's general cached loop (`decode_from_memory` with
+    cross_impl "xla", "mxu" or "kernel"), operation for operation: products
+    in the compute dtype with f32 scores and weights, the residual stream,
+    layer norms and heads in f32."""
+    use_kernel = cross_impl == "kernel"
+    use_mxu = cross_impl == "mxu"
+    S, H, Dh, D = (dims.max_output_length, dims.num_head, dims.head_dim,
+                   dims.num_model)
+    kvH, G, L = dims.kv_heads, dims.kv_groups, dims.num_decoder_layers
+    Dkv = kvH * Dh
+    if use_kernel and G > 1:
+        # the kernel takes one K/V row per query head; grouped-query
+        # models take the mxu schedule on the GPU (JAX: on its TPU)
+        use_kernel = False
+        use_mxu = memory.device.type == "cuda"
+    dev = memory.device
+    B, Li = memory.shape[0], memory.shape[1]
+    head_kv = torch.arange(H, device=dev) // G
+    bias_f = torch.where(memory_mask.to(dev), NEG_INF, 0.0).float()  # (B, Li)
+
+    cross_k, cross_v = precompute_cross_kv(params, memory, dims, cd)
+    ck_s = cv_s = None
+    if use_kernel:
+        # one (Li, Dh) K and V tile per (row, head), see ops/cross_decode.py
+        ck = cross_k.permute(0, 1, 3, 2, 4).reshape(L, B * H, Li, Dh)
+        cv = cross_v.permute(0, 1, 3, 2, 4).reshape(L, B * H, Li, Dh)
+        bias_bh = bias_f[:, None, :].expand(B, H, Li).reshape(B * H, Li)
+        if kv_quant:
+            ck, ck_s = CD.quantize_rows(ck, (2, 3))
+            cv, cv_s = CD.quantize_rows(cv, (2, 3))
+            ck_s, cv_s = ck_s.reshape(L, B * H, 1), cv_s.reshape(L, B * H, 1)
+        ck, cv, bias_bh = ck.contiguous(), cv.contiguous(), \
+            bias_bh.contiguous()
+    elif use_mxu:
+        # queries as the block-diagonal rows of an (H, Dkv) matrix against
+        # the unsplit K/V; each head keeps its diagonal Dh block of the output
+        k_flat = cross_k.reshape(L, B, Li, Dkv)
+        v_flat = cross_v.reshape(L, B, Li, Dkv)
+        if kv_quant:
+            k4q, ck_s = CD.quantize_rows(cross_k, (2, 4))
+            v4q, cv_s = CD.quantize_rows(cross_v, (2, 4))
+            k_flat, v_flat = (k4q.reshape(L, B, Li, Dkv),
+                              v4q.reshape(L, B, Li, Dkv))
+            ck_s, cv_s = ck_s.reshape(L, B, kvH), cv_s.reshape(L, B, kvH)
+        eye_h = (head_kv[:, None] == torch.arange(kvH, device=dev)[None]
+                 ).float()                                    # (H, kvH)
+        bias_b = bias_f[:, None, :]                           # (B, 1, Li)
+    elif kv_quant:
+        ck_q, ck_s = _quantize_in_dtype(cross_k)
+        cv_q, cv_s = _quantize_in_dtype(cross_v)
+    cross_bias = bias_f[:, None, None, :]
+
+    dec, heads, emb = params["decoder"], params["heads"], params["embed"]
+    # the products' weights in the compute dtype once, not at every step
+    sa_l, ca_l, ffn_l = ([{k: v.to(cd) for k, v in p.items()}
+                          for p in _layers(dec[n], L)]
+                         for n in ("self_attn", "cross_attn", "ffn"))
+    n1_l, n2_l, n3_l = (_layers(dec[n], L) for n in ("norm1", "norm2", "norm3"))
+    wqkv_l = [torch.cat([p["wq"], p["wk"], p["wv"]], dim=1) for p in sa_l]
+    bqkv_l = [torch.cat([p["bq"], p["bk"], p["bv"]]) for p in sa_l]
+
+    def mm(x, w, b):
+        return x.to(cd) @ w.to(cd) + b.to(cd)
+
+    def scores_of(q, k):  # q (B,1,H,Dh), k (B,T,kvH,Dh) -> (B,H,1,T) f32
+        k = k.repeat_interleave(G, dim=2) if G > 1 else k
+        return torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+
+    def out_of(w, v):  # w (B,H,1,T) cd, v (B,T,kvH,Dh) -> (B,1,H,Dh) f32
+        v = v.repeat_interleave(G, dim=2) if G > 1 else v
+        return torch.einsum("bhqk,bkhd->bqhd", w.float(), v.float())
+
+    struct = torch.as_tensor(pointer_structure_mask(dims), device=dev)
+    scale = 1.0 / math.sqrt(Dh)
+    self_quant = bool(kv_quant if self_quant is None else self_quant) \
+        and use_mxu
+    cache_dtype = torch.int8 if self_quant else cd
+    k_cache = torch.zeros((L, B, S, kvH, Dh), dtype=cache_dtype, device=dev)
+    v_cache = torch.zeros((L, B, S, kvH, Dh), dtype=cache_dtype, device=dev)
+    if self_quant:
+        ks_cache = torch.zeros((L, B, S, kvH), dtype=torch.float32,
+                               device=dev)
+        vs_cache = torch.zeros((L, B, S, kvH), dtype=torch.float32,
+                               device=dev)
+    h_cache = torch.zeros((B, S, D), dtype=cd if use_mxu else torch.float32,
+                          device=dev)
+    output = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    attach = torch.full((B, S), -1, dtype=torch.int32, device=dev)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    pos = torch.arange(S, device=dev)
+
+    def quant_token(x):  # (B, kvH, Dh) -> int8, (B, kvH) f32
+        q, s = CD.quantize_rows(x, (-1,))
+        return q, s[..., 0]
+
+    def cross(l, q2):
+        if use_kernel:
+            c = CD.cross_attn_decode(
+                q2.reshape(B * H, Dh), ck[l], cv[l], bias_bh,
+                None if ck_s is None else ck_s[l],
+                None if cv_s is None else cv_s[l], sm_scale=scale)
+        elif use_mxu:
+            qh = q2[:, 0].float()                             # (B, H, Dh)
+            if ck_s is not None:
+                qh = qh * ck_s[l][:, head_kv][..., None]       # K dequant
+            qblk = (qh[:, :, None, :] * eye_h[None, :, :, None]
+                    ).reshape(B, H, Dkv)
+            sc = torch.einsum("bhe,ble->bhl", qblk.to(cd).float(),
+                              k_flat[l].to(cd).float()) * scale
+            w = torch.softmax(sc + bias_b, dim=-1)            # (B, H, Li)
+            of = torch.einsum("bhl,ble->bhe", w.to(cd).float(),
+                              v_flat[l].to(cd).float())
+            c = (of.reshape(B, H, kvH, Dh)
+                 * eye_h[None, :, :, None]).sum(dim=2)        # (B, H, Dh)
+            if cv_s is not None:
+                c = c * cv_s[l][:, head_kv][..., None]
+        else:
+            if kv_quant:
+                ckl = ck_q[l].to(cd) * ck_s[l].to(cd)
+                cvl = cv_q[l].to(cd) * cv_s[l].to(cd)
+            else:
+                ckl, cvl = cross_k[l], cross_v[l]
+            w = torch.softmax(scores_of(q2, ckl) * scale + cross_bias, -1)
+            c = out_of(w.to(cd), cvl)
+        return c.reshape(B, 1, D)
+
+    def step(t):
+        x = _embed_step(emb, output, t, dims.num_output_dof)[:, None, :]
+        self_bias = torch.where(pos <= t, 0.0, NEG_INF)[None, None, None, :]
+        for l in range(L):
+            h = layer_norm(n1_l[l], x)
+            qkv = mm(h, wqkv_l[l], bqkv_l[l])[:, 0]
+            q = qkv[:, :D].reshape(B, 1, H, Dh)
+            k_t = qkv[:, D:D + Dkv].reshape(B, kvH, Dh)
+            v_t = qkv[:, D + Dkv:].reshape(B, kvH, Dh)
+            if self_quant:
+                k_cache[l, :, t], ks_cache[l, :, t] = quant_token(k_t)
+                v_cache[l, :, t], vs_cache[l, :, t] = quant_token(v_t)
+                scores = scores_of(q, k_cache[l].to(cd)) * scale
+                # per-token scales of each query head's kv head: the K
+                # scale multiplies the scores, the V scale the weights
+                ks_t = ks_cache[l].transpose(1, 2)[:, head_kv]   # (B, H, S)
+                vs_t = vs_cache[l].transpose(1, 2)[:, head_kv]
+                w = torch.softmax(scores * ks_t[:, :, None, :] + self_bias,
+                                  dim=-1)
+                a = out_of((w * vs_t[:, :, None, :]).to(cd),
+                           v_cache[l].to(cd))
+            else:
+                k_cache[l, :, t] = k_t
+                v_cache[l, :, t] = v_t
+                w = torch.softmax(scores_of(q, k_cache[l]) * scale
+                                  + self_bias, dim=-1)
+                a = out_of(w.to(cd), v_cache[l])
+            a = mm(a.reshape(B, 1, D), sa_l[l]["wo"], sa_l[l]["bo"])
+            x = x + a.to(x.dtype)
+
+            h = layer_norm(n2_l[l], x)
+            q2 = mm(h, ca_l[l]["wq"], ca_l[l]["bq"]).reshape(B, 1, H, Dh)
+            c = mm(cross(l, q2), ca_l[l]["wo"], ca_l[l]["bo"])
+            x = x + c.to(x.dtype)
+
+            h = layer_norm(n3_l[l], x)
+            z = torch.relu(mm(h, ffn_l[l]["w1"], ffn_l[l]["b1"]))
+            z = mm(z, ffn_l[l]["w2"], ffn_l[l]["b2"])
+            x = x + z.to(x.dtype)
+
+        h_t = layer_norm(dec["final_norm"], x)[:, 0].float()
+        h_cache[:, t] = h_t.to(h_cache.dtype)
+        _mixed_sample(heads, dims, struct, pos, h_t, h_cache, output, attach,
+                      done, t)
+
+    n = _run_steps(step, S, early_exit, done, output, attach)
+    return {"samples": output, "attach": attach, "num_steps": n}
+
+
+class FusedDecode:
+    """The "fused" decode loop (the JAX package's `_decode_fused`): its
+    per-layer weights, int8 cross K/V and caches in the layouts of
+    `ops/fused_decode.py`, and its outputs. `step(t)` runs one decode
+    step; `embed`, `layer` and `layer_args` expose a step's parts."""
+
+    def __init__(self, params, memory, memory_mask, dims: ModelDims, cd):
+        H, Dh, D = dims.num_head, dims.head_dim, dims.num_model
+        if dims.kv_heads != H:
+            raise ValueError(
+                "cross_impl='fused' requires MHA "
+                f"(H={H}, kvH={dims.kv_heads}); use cross_impl='mxu' for "
+                "GQA/MQA")
+        B, Li = memory.shape[0], memory.shape[1]
+        CH = FD.chunk_width(Li)
+        if Li % CH:
+            raise ValueError(f"fused decode needs Li % {CH} == 0, got {Li}")
+        L, S = dims.num_decoder_layers, dims.max_output_length
+        dev, f32 = memory.device, torch.float32
+        self.dims, self.cd, self.B = dims, cd, B
+        self.scale = 1.0 / math.sqrt(Dh)
+
+        cross_k, cross_v = precompute_cross_kv(params, memory, dims, cd)
+        k4q, cks = CD.quantize_rows(cross_k, (2, 4))      # (L, B, Li, H, Dh)
+        v4q, cvs = CD.quantize_rows(cross_v, (2, 4))
+        del cross_k, cross_v
+        self.ck = [k4q[l].permute(0, 2, 1, 3).contiguous() for l in range(L)]
+        self.cv = [v4q[l].permute(0, 2, 3, 1).contiguous() for l in range(L)]
+        self.cks = [cks[l].reshape(B, H).contiguous() for l in range(L)]
+        self.cvs = [cvs[l].reshape(B, H).contiguous() for l in range(L)]
+        self.cbias = torch.where(memory_mask.to(dev), NEG_INF, 0.0).to(f32)
+
+        dec = params["decoder"]
+        sa, ca, ffn = (_layers(dec[n], L) for n in
+                       ("self_attn", "cross_attn", "ffn"))
+        norms = [_layers(dec[n], L) for n in ("norm1", "norm2", "norm3")]
+
+        def c(t, dtype):
+            return t.to(device=dev, dtype=dtype).contiguous()
+
+        self.weights = [(
+            c(torch.cat([sa[l]["wq"], sa[l]["wk"], sa[l]["wv"]], dim=1), cd),
+            c(torch.cat([sa[l]["bq"], sa[l]["bk"], sa[l]["bv"]]), f32),
+            c(sa[l]["wo"], cd), c(sa[l]["bo"], f32),
+            c(ca[l]["wq"], cd), c(ca[l]["bq"], f32),
+            c(ca[l]["wo"], cd), c(ca[l]["bo"], f32),
+            c(ffn[l]["w1"], cd), c(ffn[l]["b1"], f32),
+            c(ffn[l]["w2"], cd), c(ffn[l]["b2"], f32),
+            c(torch.stack([n[l][k] for n in norms for k in ("scale", "bias")]),
+              f32)) for l in range(L)]
+        self.final_norm, self.heads = dec["final_norm"], params["heads"]
+        self.emb = params["embed"]
+
+        self.k_cache = [torch.zeros((B, H, S, Dh), dtype=torch.int8,
+                                    device=dev) for _ in range(L)]
+        self.v_cache = [torch.zeros((B, H, Dh, S), dtype=torch.int8,
+                                    device=dev) for _ in range(L)]
+        self.ks_cache = [torch.zeros((B, H, S), dtype=f32, device=dev)
+                         for _ in range(L)]
+        self.vs_cache = [torch.zeros((B, H, S), dtype=f32, device=dev)
+                         for _ in range(L)]
+        self.h_cache = torch.zeros((B, S, D), dtype=cd, device=dev)
+        self.output = torch.zeros((B, S), dtype=torch.int32, device=dev)
+        self.attach = torch.full((B, S), -1, dtype=torch.int32, device=dev)
+        self.done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        self.struct = torch.as_tensor(pointer_structure_mask(dims), device=dev)
+        self.pos = torch.arange(S, device=dev)
+
+    def embed(self, t):
+        return _embed_step(self.emb, self.output, t,
+                           self.dims.num_output_dof).float()
+
+    def layer_args(self, l):
+        """Layer l's arguments of `fused_decoder_layer` after (x, t)."""
+        return (*self.weights[l], self.k_cache[l], self.v_cache[l],
+                self.ks_cache[l], self.vs_cache[l], self.ck[l], self.cv[l],
+                self.cks[l], self.cvs[l], self.cbias)
+
+    def layer(self, l, x, t):
+        """Run layer l at step t and write the new token's K/V at t."""
+        d = self.dims
+        x, nk, nv, nks, nvs = FD.fused_decoder_layer(
+            x, t, *self.layer_args(l), H=d.num_head, Dh=d.head_dim,
+            sm_scale=self.scale, cd=self.cd)
+        B, H, Dh = self.B, d.num_head, d.head_dim
+        self.k_cache[l][:, :, t] = nk.reshape(B, H, Dh)
+        self.v_cache[l][:, :, :, t] = nv.reshape(B, H, Dh)
+        self.ks_cache[l][:, :, t] = nks
+        self.vs_cache[l][:, :, t] = nvs
+        return x
+
+    def step(self, t):
+        x = self.embed(t)
+        for l in range(self.dims.num_decoder_layers):
+            x = self.layer(l, x, t)
+        h_t = layer_norm(self.final_norm, x).float()
+        self.h_cache[:, t] = h_t.to(self.cd)
+        _mixed_sample(self.heads, self.dims, self.struct, self.pos, h_t,
+                      self.h_cache, self.output, self.attach, self.done, t)
+
+    def run(self, early_exit=True):
+        n = _run_steps(self.step, self.dims.max_output_length, early_exit,
+                       self.done, self.output, self.attach)
+        return {"samples": self.output, "attach": self.attach, "num_steps": n}
 
 
 def pick_kv_bucket(input_mask, quantum: int = 128) -> int:

@@ -134,6 +134,25 @@ def _declare(lib):
                                             # threshold, 1 - rate, plan block
         I32, P]                             # is_bf16, stream
     lib.plank_flash_train_bwd.restype = I32
+    lib.plank_cross_attn_decode.argtypes = [
+        P, P, P, P, P, P, P,           # q, k, v, bias, k_scale, v_scale, out
+        I64, I64, I64, F32, I32, I32,  # BH, Li, Dh, sm_scale, q bf16, kv int8
+        P]                             # stream
+    lib.plank_cross_attn_decode.restype = I32
+    lib.plank_fused_layer.argtypes = (
+        [P] * 10      # x, wqkv, bqkv, wos, bos, wqc, bqc, woc, boc, ln
+        + [P] * 9     # k/v caches, their scales, ck, cv, cks, cvs, cbias
+        + [P] * 5     # x_out, nk, nv, nks, nvs
+        + [P] * 5     # qkv, h, x_mid, gemm workspace, counters
+        + [I64] * 7   # B, H, Dh, S, Li, CH, t
+        + [F32, I32, P])  # sm_scale, is_bf16, stream
+    lib.plank_fused_layer.restype = I32
+    lib.plank_fused_ffn.argtypes = (
+        [P] * 6       # x, w1, b1, w2, b2, ln3
+        + [P] * 4     # h, out, gemm workspace, counters
+        + [I64] * 3   # B, D, F
+        + [I32, P])   # is_bf16, stream
+    lib.plank_fused_ffn.restype = I32
 
 
 def library():

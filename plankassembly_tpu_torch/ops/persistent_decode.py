@@ -30,6 +30,7 @@ import torch
 
 from plankassembly_tpu_torch.config import ModelDims
 from plankassembly_tpu_torch.ops import _build
+from plankassembly_tpu_torch.ops.cross_decode import quantize_rows
 
 # calls that ran the CUDA decode (one per decode of a batch)
 launches = 0
@@ -48,7 +49,7 @@ def greedy_decode_reference(params, memory, memory_mask, dims: ModelDims, *,
     `decode_from_memory(..., kv_quant=True, self_quant=False,
     cross_impl="xla")` operation for operation."""
     from plankassembly_tpu_torch.decode import (
-        _mixed_sample, precompute_cross_kv, quantize_cross_kv,
+        _mixed_sample, precompute_cross_kv,
     )
     from plankassembly_tpu_torch.models.model import (
         NEG_INF, layer_norm, pointer_structure_mask,
@@ -64,8 +65,8 @@ def greedy_decode_reference(params, memory, memory_mask, dims: ModelDims, *,
     B = memory.shape[0]
 
     cross_k, cross_v = precompute_cross_kv(params, memory, dims, cd)
-    ck_q, ck_s = quantize_cross_kv(cross_k)
-    cv_q, cv_s = quantize_cross_kv(cross_v)
+    ck_q, ck_s = quantize_rows(cross_k, (2, 4))
+    cv_q, cv_s = quantize_rows(cross_v, (2, 4))
     cross_bias = torch.where(memory_mask.to(dev), NEG_INF, 0.0)[:, None, None, :]
 
     dec, heads = params["decoder"], params["heads"]
@@ -175,7 +176,7 @@ def _prepare(params, memory, memory_mask, dims: ModelDims, cd, early_exit):
     """Device tensors for the kernels: packed weights, int8 cross K/V,
     state and scratch. Returns (dict of tensors, ints for DecodeArgs)."""
     from plankassembly_tpu_torch.decode import (
-        precompute_cross_kv, quantize_cross_kv,
+        precompute_cross_kv,
     )
     from plankassembly_tpu_torch.models.model import pointer_structure_mask
 
@@ -191,8 +192,8 @@ def _prepare(params, memory, memory_mask, dims: ModelDims, cd, early_exit):
     sa, ca, ffn = dec["self_attn"], dec["cross_attn"], dec["ffn"]
 
     cross_k, cross_v = precompute_cross_kv(params, memory, dims, cd)
-    ck_q, ck_s = quantize_cross_kv(cross_k)
-    cv_q, cv_s = quantize_cross_kv(cross_v)
+    ck_q, ck_s = quantize_rows(cross_k, (2, 4))
+    cv_q, cv_s = quantize_rows(cross_v, (2, 4))
     # (K, N) of every product of a step: qkv, wo, cross q, cross wo, w1,
     # w2, heads
     products = [(D, D + 2 * Dkv), (D, D), (D, F), (F, D), (D, V + D + 1)]

@@ -3,8 +3,8 @@
 Ports the serving half of `plankassembly_tpu/serving.py` and the serving
 contract of `plankassembly_tpu/export.py` (`serving_meta`, `pad_request`):
 
-- `pack_info_dict` packs one info-JSON request (the `lines` form) into the
-  model's input streams;
+- `pack_info_dict` packs one info-JSON request (`lines`, or the `svgs`
+  GeoJSON linestrings) into the model's input streams;
 - `make_live_backend` turns a loaded checkpoint into a backend callable
   with the (batch, bucket) serving contract;
 - `BatchingServer` multiplexes concurrent single-sample requests onto that
@@ -12,8 +12,7 @@ contract of `plankassembly_tpu/export.py` (`serving_meta`, `pad_request`):
   after the first arrival, runs one decode, and fans the rows back out;
 - `postprocess_prediction` turns a decoded row into planks + attachments.
 
-Requests that carry only `svgs` need the geometry module, which is not
-ported yet; they raise.
+Requests of the sideface modality are not ported yet.
 """
 from __future__ import annotations
 
@@ -25,6 +24,7 @@ import numpy as np
 import torch
 
 from plankassembly_tpu_torch.config import ModelDims
+from plankassembly_tpu_torch.data import geometry as geo
 from plankassembly_tpu_torch.data.packing import pack_input_sequence
 from plankassembly_tpu_torch.decode import greedy_decode, parse_sequence
 from plankassembly_tpu_torch.device import resolve_device
@@ -92,14 +92,14 @@ def pad_request(batch: dict, meta: dict) -> tuple[dict, int]:
 
 
 def pack_info_dict(info: dict, cfg) -> dict:
-    """Pack one prepare_info-contract dict (`lines`/`views`/`types`) into
-    the model's input streams. (The sideface modality's requests are not
-    ported yet.)"""
-    if "lines" not in info:
-        raise NotImplementedError(
-            "requests with only 'svgs' need the geometry module, which is "
-            "not ported yet; send 'lines'")
-    lines = np.array(info["lines"], dtype=np.float64)
+    """Pack one prepare_info-contract dict (`lines`/`views`/`types`, or
+    raw `svgs` GeoJSON linestrings in place of `lines`, whose bounding
+    boxes are the lines) into the model's input streams. (The sideface
+    modality's requests are not ported yet.)"""
+    if "lines" in info:
+        lines = np.array(info["lines"], dtype=np.float64)
+    else:
+        lines = geo.bounds_many([geo.from_geojson(s) for s in info["svgs"]])
     return pack_input_sequence(
         lines, np.asarray(info["views"]), np.asarray(info["types"]),
         cfg.DATA, cfg.TOKEN, with_type=True)
@@ -118,9 +118,12 @@ def postprocess_prediction(sample_row, attach_row, dims: ModelDims):
 
 
 def make_live_backend(params, cfg, *, batch: int, bucket: int,
-                      compute_dtype=torch.bfloat16, device=None):
+                      compute_dtype=torch.bfloat16, device=None,
+                      cross_impl: str = "persistent"):
     """A checkpoint-backed backend with the serving contract. Returns
-    (backend callable, meta dict).
+    (backend callable, meta dict). It decodes with int8 cross K/V
+    (`kv_quant=True`) by the decode path `cross_impl` names
+    (`decode.decode_from_memory`).
 
     Unlike the JAX backend, which compiles for a fixed batch, this decodes
     only the request's real rows after `pad_request` validates and pads
@@ -136,7 +139,8 @@ def make_live_backend(params, cfg, *, batch: int, bucket: int,
         inputs = {k: torch.from_numpy(v[:rows]).to(dev)
                   for k, v in padded.items()}
         out = greedy_decode(params, inputs, dims,
-                            compute_dtype=compute_dtype, kv_bucket=bucket)
+                            compute_dtype=compute_dtype, kv_bucket=bucket,
+                            kv_quant=True, cross_impl=cross_impl)
         return {"samples": out["samples"].cpu().numpy(),
                 "attach": out["attach"].cpu().numpy(),
                 "num_steps": np.asarray(out["num_steps"])}

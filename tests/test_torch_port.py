@@ -30,6 +30,8 @@ import plankassembly_tpu_torch.metrics
 import plankassembly_tpu_torch.checkpoint
 import plankassembly_tpu_torch.ops.persistent_decode
 import plankassembly_tpu_torch.ops.attention
+import plankassembly_tpu_torch.ops.cross_decode
+import plankassembly_tpu_torch.ops.fused_decode
 from plankassembly_tpu_torch.config import config_from_hparams_file
 cfg = config_from_hparams_file(sys.argv[1])
 leaked = sorted(m for m in sys.modules if sys.modules[m] is not None and (

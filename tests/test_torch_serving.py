@@ -77,8 +77,34 @@ def test_pack_info_dict_identical_to_jax():
                                jcfg.DATA, jcfg.TOKEN)
         for k in out_ref:
             np.testing.assert_array_equal(out_ours[k], out_ref[k])
-    with pytest.raises(NotImplementedError):
-        serving.pack_info_dict({"svgs": [], "views": [], "types": []}, cfg)
+    # a request with only `svgs`, and none of them: both pack it alike
+    empty = {"svgs": [], "views": [], "types": []}
+    ours, ref = serving.pack_info_dict(empty, cfg), jax_pack_info(empty, jcfg)
+    for k in ref:
+        np.testing.assert_array_equal(ours[k], ref[k])
+
+
+def test_svgs_only_requests_pack_like_jax():
+    """Each train64 drawing with `lines` taken away packs from its `svgs`
+    (GeoJSON linestrings -> bounding boxes) to the arrays JAX packs, in
+    all six input streams."""
+    cfg = config_from_hparams_file(HP)
+    jcfg = jax_config(HP)
+    with gzip.open(os.path.join(FIX, "train64.json.gz"), "rt") as f:
+        infos = json.load(f)
+    assert len(infos) == 64
+    for info in infos:
+        req = {k: v for k, v in info.items() if k != "lines"}
+        ours = serving.pack_info_dict(req, cfg)
+        ref = jax_pack_info(req, jcfg)
+        assert sorted(ours) == sorted(ref) == sorted(serving._INPUT_DTYPES)
+        for k in ref:
+            assert ours[k].dtype == ref[k].dtype, k
+            np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
+        # the svgs carry the same lines as the drawing's own `lines`
+        np.testing.assert_array_equal(
+            ours["input_value"], serving.pack_info_dict(info, cfg)[
+                "input_value"])
 
 
 def _perturbed(gt, rng):

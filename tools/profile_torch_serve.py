@@ -2,12 +2,14 @@
 """Where the PyTorch port's serving time goes, on one NVIDIA GPU.
 
   python3 tools/profile_torch_serve.py [--programs 32] [--dtype bf16]
-                                       [--trace serve_trace.json]
+      [--ckpt checkpoints/gqa_complete_ep221.npz] [--cross-impl persistent]
+      [--trace serve_trace.json]
 
-Loads checkpoints/gqa_complete_ep221.npz, packs the first `--programs`
-drawings of the serving fixture (plankassembly_tpu_torch/fixtures), runs
-one warm-up decode, then one `greedy_decode` (encoder + decode loop) under
-torch.profiler. Prints the wall time, the device time summed over
+Loads the checkpoint, packs the first `--programs` drawings of the serving
+fixture (plankassembly_tpu_torch/fixtures), runs one warm-up decode, then
+one `greedy_decode` (encoder + decode loop, int8 cross K/V, by the decode
+path `--cross-impl` names; "kernel" and "fused" need an MHA checkpoint such
+as checkpoints/mha_complete_ep59.npz) under torch.profiler. Prints the wall time, the device time summed over
 kernels, the device's idle share of the wall time, the time per decode
 step, and the kernels ranked by device time. Needs CUDA.
 """
@@ -40,6 +42,10 @@ def main() -> int:
     ap.add_argument("--trace", default=None,
                     help="write a chrome trace of the profiled call here")
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--ckpt", default=os.path.join(
+        ROOT, "checkpoints", "gqa_complete_ep221.npz"))
+    ap.add_argument("--cross-impl", default="persistent",
+                    choices=("persistent", "xla", "mxu", "kernel", "fused"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serve: CUDA is not available", file=sys.stderr)
@@ -51,9 +57,7 @@ def main() -> int:
     from plankassembly_tpu_torch.serving import pack_info_dict
 
     fixtures = os.path.join(ROOT, "plankassembly_tpu_torch", "fixtures")
-    params, cfg = load_checkpoint(
-        os.path.join(ROOT, "checkpoints", "gqa_complete_ep221.npz"),
-        device="cuda")
+    params, cfg = load_checkpoint(args.ckpt, device="cuda")
     dims = ModelDims.from_config(cfg)
     with gzip.open(os.path.join(fixtures, "serve64.json.gz"), "rt") as f:
         infos = json.load(f)[: args.programs]
@@ -66,7 +70,8 @@ def main() -> int:
 
     def run():
         out = greedy_decode(params, batch, dims, compute_dtype=cd,
-                            kv_bucket=bucket)
+                            kv_bucket=bucket, kv_quant=True,
+                            cross_impl=args.cross_impl)
         torch.cuda.synchronize()
         return out
 
@@ -97,7 +102,8 @@ def main() -> int:
                           text=True).stdout.strip().splitlines()[0]
     steps = out["num_steps"]
     print(f"card: {card}")
-    print(f"programs {args.programs} dtype {args.dtype} bucket {bucket} "
+    print(f"{os.path.basename(args.ckpt)} cross_impl {args.cross_impl} "
+          f"programs {args.programs} dtype {args.dtype} bucket {bucket} "
           f"steps {steps}: wall {wall_plain * 1e3:.1f} ms unprofiled, "
           f"{wall * 1e3:.1f} ms profiled; device busy {busy_us / 1e3:.1f} ms "
           f"(idle share {1 - busy_us / 1e3 / (wall * 1e3):.3f}); "
