@@ -7,12 +7,17 @@ Phases, each under a watchdog that ends the run with a stack trace
 instead of hanging, each printing one line (or a few) when it ends:
 
 1. device: the card's name and power limit, and the nvcc build of the
-   kernels in plankassembly_tpu_torch/csrc (build seconds, registers);
+   kernels in plankassembly_tpu_torch/csrc (build seconds, registers and
+   spills of each kernel); the tensor-core sentinel: the HMMA
+   instructions of each bf16 attention kernel in `cuobjdump --dump-sass`
+   of the built library, which must not be 0;
 2. flash_attention (CUDA) against its plain version at encoder shapes:
-   B=64, H=8, L=1280, ragged lengths, causal and not, bf16 and f32; and at
+   B=64, H=8, L=1280, ragged lengths with a row of length 0 and one of
+   length 1, causal and not, bf16 (tensor cores) and f32 (SIMT); and at
    the main path's own shape (the 32-program request: grouped-query K/V,
    the fixture's lengths, bucket width); kernel, plain and
-   scaled_dot_product_attention times (the last a yardstick only);
+   scaled_dot_product_attention times (the last a yardstick only), and
+   the f32 kernel's time;
 3. the decode kernels against their plain version on the flagship
    checkpoint and the fixture's encoder memory, in bf16: token agreement,
    F1 of each, time per step;
@@ -25,9 +30,12 @@ instead of hanging, each printing one line (or a few) when it ends:
    against their plain version at the flagship's three training shapes
    (B=64, bf16 and f32, the training fixture's real lengths: encoder
    self-attention 8 heads over 2 kv heads at 1199 tokens, decoder causal
-   self-attention at 127, cross-attention 127 x 1199), at dropout 0 and
-   0.2; kernel, plain and scaled_dot_product_attention times (the last at
-   rate 0 only, a yardstick) beside the bound;
+   self-attention at 127, cross-attention 127 x 1199) and at the encoder
+   shape with MHA heads (8 over 8, B=8), at dropout 0 and 0.2, and each
+   again on 8 rows of which two have lengths 0 and 1; kernel, plain and
+   scaled_dot_product_attention times (the last at rate 0 only, a
+   yardstick) beside the bound, and the f32 kernels' times at the
+   encoder shape;
 6. train_step: one full-width training step of ep221 on the first 8
    drawings of the training fixture, kernels on, dropout 0, f32 and bf16,
    against the JAX reference's golden loss, accuracy and per-leaf gradient
@@ -64,6 +72,8 @@ import gzip
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -210,6 +220,64 @@ def kernel_ms(fn, reps=10, warmup=2):
     return us / 1e3 / reps
 
 
+def ptxas_summary(build_log):
+    """(entry function, registers, spill store bytes, spill load bytes)
+    of each kernel, from the build's `-Xptxas -v` output."""
+    rows, fn, spill = [], None, (0, 0)
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            rows.append((fn, int(m.group(1)), *spill))
+            fn = None
+    return rows
+
+
+# the bf16 (tensor-core) kernels of each redesigned TPU kernel, by the name
+# of their __global__ function
+MMA_KERNELS = {"flash_attention": ("flash_mma_kernel",),
+               "fused_attention_train_fwd": ("train_fwd_mma_kernel",),
+               "fused_attention_train_bwd": ("train_dq_mma_kernel",
+                                             "train_dkdv_mma_kernel")}
+# each kernel's route by dtype: the tensor cores take f32 only as TF32, so
+# the f32 form stays on the SIMT kernels
+ROUTES = {"bf16": "cuda-mma", "f32": "cuda-simt"}
+
+
+def hmma_counts(lib_path):
+    """HMMA (tensor-core) instructions of each function of MMA_KERNELS in
+    the SASS of the built library."""
+    from plankassembly_tpu_torch.ops import _build
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "--dump-sass", lib_path],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
+    per_fn, fn = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            per_fn.setdefault(fn, 0)
+        elif fn is not None and re.search(r"\bHMMA\b", line):
+            per_fn[fn] += 1
+    counts = {}
+    for kernels in MMA_KERNELS.values():
+        for k in kernels:
+            hits = [n for n in per_fn if k in n]
+            check(len(hits) == 1, f"{k}: {len(hits)} functions in the SASS")
+            counts[k] = per_fn[hits[0]]
+    return counts
+
+
 class Phase:
     def __init__(self, name):
         self.name = name
@@ -236,6 +304,10 @@ def _sdpa(q, k, v, mask):
 
 
 def flash_case(B, H, Hkv, L, lengths, causal, dtype, seed, timing=False):
+    """Kernel against plain version (bf16 also element by element against
+    the plain version in f32, `elem`); with timing, the kernel's, plain
+    version's and SDPA's times and the bound (timing="kernel": the
+    kernel's time only)."""
     from plankassembly_tpu_torch.ops import attention as A
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     q = torch.randn((B, H, L, 64), generator=g, device=DEVICE).to(dtype)
@@ -248,9 +320,19 @@ def flash_case(B, H, Hkv, L, lengths, causal, dtype, seed, timing=False):
     err = (got.float() - ref.float()).abs().max().item()
     check(torch.isfinite(got.float()).all().item(), "flash output not finite")
     res = {"err": err}
+    if dtype == torch.bfloat16:
+        # the bf16 kernel rounds its f32 result once, as the training
+        # kernels do: TRAIN_KERNEL_TOL's bf16 bound holds it element by
+        # element, where FLASH_TOL (absolute, over the output) would not
+        # see P multiplied as its bf16 high half alone
+        ref = A.flash_attention_reference(q.float(), k.float(), v.float(),
+                                          lens, causal=causal)
+        res["elem"] = _train_err(got, ref, dtype)
+        del ref
     if timing:
         res["ms"] = cuda_ms(lambda: A.flash_attention(q, k, v, lens,
                                                       causal=causal))
+    if timing is True:
         res["plain_ms"] = cuda_ms(lambda: A.flash_attention_reference(
             q, k, v, lens, causal=causal), reps=3, warmup=1)
         col = torch.arange(L, device=DEVICE)
@@ -276,8 +358,10 @@ def flash_case(B, H, Hkv, L, lengths, causal, dtype, seed, timing=False):
 
 def phase_flash(main_lengths, bucket):
     rng = np.random.default_rng(0)
-    lengths64 = np.concatenate([[1280, 1, 640],
-                                rng.integers(1, 1281, 61)]).astype(np.int32)
+    # a row with no real key (averaged over Lk, as the plain version) and
+    # a row with one
+    lengths64 = np.concatenate([[1280, 1, 0, 640],
+                                rng.integers(1, 1281, 60)]).astype(np.int32)
     for dtype in (torch.bfloat16, torch.float32):
         for causal in (False, True):
             r = flash_case(64, 8, 8, 1280, lengths64, causal, dtype,
@@ -285,17 +369,30 @@ def phase_flash(main_lengths, bucket):
             tag = f"flash B=64 H=8 L=1280 ragged {str(dtype)[6:]} " \
                   f"causal={causal}"
             log(f"{tag}: max_abs_err {r['err']:.3e} "
-                f"(tol {FLASH_TOL[dtype]:g})")
+                f"(tol {FLASH_TOL[dtype]:g})" + (
+                    f"; err over the TRAIN_KERNEL_TOL bound {r['elem']:.3f}"
+                    if "elem" in r else ""))
             check(r["err"] <= FLASH_TOL[dtype], f"{tag} disagrees")
+            check(r.get("elem", 0.0) <= 1.0, f"{tag} disagrees element by "
+                  f"element")
     # the main path's shape: the 32-program request at the serving bucket,
     # grouped-query K/V (2 kv heads), the fixture's real lengths
     r = flash_case(len(main_lengths), 8, 2, bucket, main_lengths,
                    False, torch.bfloat16, seed=3, timing=True)
     log(f"flash main-path shape B={len(main_lengths)} H=8 Hkv=2 L={bucket} "
-        f"bf16: max_abs_err {r['err']:.3e}; kernel {r['ms']:.3f} ms, plain "
+        f"bf16: max_abs_err {r['err']:.3e}, err over the TRAIN_KERNEL_TOL "
+        f"bound {r['elem']:.3f}; kernel {r['ms']:.3f} ms, plain "
         f"{r['plain_ms']:.3f} ms, sdpa {r['library_ms']:.3f} ms, bound "
         f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     check(r["err"] <= FLASH_TOL[torch.bfloat16], "flash main shape disagrees")
+    check(r["elem"] <= 1.0, "flash main shape disagrees element by element")
+    r32 = flash_case(len(main_lengths), 8, 2, bucket, main_lengths, False,
+                     torch.float32, seed=3, timing="kernel")
+    log(f"flash main-path shape f32 (SIMT): max_abs_err {r32['err']:.3e}; "
+        f"kernel {r32['ms']:.3f} ms")
+    check(r32["err"] <= FLASH_TOL[torch.float32], "flash main shape f32 "
+          "disagrees")
+    r["ms_f32"] = r32["ms"]
     return r
 
 
@@ -526,7 +623,9 @@ def _train_shapes(train_packed):
     Li = train_packed[0]["input_mask"].shape[0]
     return [("encoder self", 8, 2, Li, Li, False, in_len),
             ("decoder self", 8, 2, S, S, True, out_len),
-            ("cross", 8, 2, S, Li, False, in_len)]
+            ("cross", 8, 2, S, Li, False, in_len),
+            # the reference's MHA layout (G = 1), checked only
+            ("encoder self MHA", 8, 8, Li, Li, False, in_len[:8])]
 
 
 def _keys(lengths, Lq, Lk, causal):
@@ -564,8 +663,39 @@ def _flip_one_keep_bit(q, k, v, do, lengths, causal, sm_scale):
     return 0, h, i, int(torch.argsort(effect)[n // 2])
 
 
+def _edge_rows(lengths):
+    """The first 8 lengths with rows 1 and 2 set to 0 (no real key: averaged
+    over Lk padded to 128, as the TPU kernel does) and 1."""
+    out = np.array(lengths[:8], dtype=np.int64)
+    out[1:3] = (0, 1)
+    return out
+
+
+def _train_outputs(FT, q, k, v, do, lens, seed, rate, causal, name):
+    """(o, dq, dk, dv) of the training path's wrapper on leaf tensors,
+    through autograd."""
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    o = FT.fused_attention_train(*leaves, lens, seed, rate, causal)
+    grads = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    outs = (o.detach(), *grads)
+    check(all(x.dtype == q.dtype for x in outs),
+          f"train_kernel {name}: output dtypes")
+    for out, x in zip(("o", "dq", "dk", "dv"), outs):
+        check(bool(torch.isfinite(x.float()).all()),
+              f"train_kernel {name}: {out} not finite")
+    return outs
+
+
 def train_kernel_case(name, H, Hkv, Lq, Lk, causal, lengths, dtype, rate,
                       timing=False):
+    """The kernels through the autograd wrapper against the plain version
+    in f32, on the lengths given (`errs`) and on a batch of 8 whose rows 1
+    and 2 have lengths 0 and 1 (`edge_errs`, `_edge_rows`; apart, since the
+    long sums of a length-1 row set the outputs' largest values, and with
+    them the bound's last term); with timing, the kernels', plain
+    version's and SDPA's times and the bounds (timing="kernel": the
+    kernels' times only)."""
     from plankassembly_tpu_torch.ops import flash_train as FT
     B = len(lengths)
     g = torch.Generator(device=DEVICE).manual_seed(Lq * 7 + Lk)
@@ -573,32 +703,22 @@ def train_kernel_case(name, H, Hkv, Lq, Lk, causal, lengths, dtype, rate,
     k = torch.randn((B, Hkv, Lk, 64), generator=g, device=DEVICE).to(dtype)
     v = torch.randn((B, Hkv, Lk, 64), generator=g, device=DEVICE).to(dtype)
     do = torch.randn((B, H, Lq, 64), generator=g, device=DEVICE).to(dtype)
-    lens = torch.as_tensor(lengths, dtype=torch.int32, device=DEVICE)
     seed = torch.tensor([TRAIN_SEED], dtype=torch.int32, device=DEVICE)
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device=DEVICE)
     args = (q, k, v, lens, seed)
 
-    # the training path's wrapper on leaf tensors, and autograd
-    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-    o = FT.fused_attention_train(*leaves, lens, seed, rate, causal)
-    grads = torch.autograd.grad(o, leaves, do)
-    o = o.detach()
-    torch.cuda.synchronize()
-    check(o.dtype == dtype and all(x.dtype == dtype for x in grads),
-          f"train_kernel {name}: output dtypes")
-    f32 = (q.float(), k.float(), v.float(), lens, seed)
-
-    def plain():
+    def plain(q, k, v, do, lens):
+        f32 = (q.float(), k.float(), v.float(), lens, seed)
         return (FT.fused_attention_train_reference(*f32, rate, causal),
                 *FT.fused_attention_train_reference_bwd(
                     *f32, do.float(), rate, causal))
 
-    refs = plain()
+    got = _train_outputs(FT, q, k, v, do, lens, seed, rate, causal, name)
+    refs = plain(q, k, v, do, lens)
     errs, abs_errs = {}, {}
-    for out, got, ref in zip(("o", "dq", "dk", "dv"), (o, *grads), refs):
-        check(bool(torch.isfinite(got.float()).all()),
-              f"train_kernel {name}: {out} not finite")
-        abs_errs[out] = (got.float() - ref).abs().max().item()
-        errs[out] = _train_err(got, ref, dtype)
+    for out, x, ref in zip(("o", "dq", "dk", "dv"), got, refs):
+        abs_errs[out] = (x.float() - ref).abs().max().item()
+        errs[out] = _train_err(x, ref, dtype)
     res = {"errs": errs, "abs_errs": abs_errs}
     del refs
     if rate > 0:
@@ -615,20 +735,29 @@ def train_kernel_case(name, H, Hkv, Lq, Lk, causal, lengths, dtype, rate,
 
         FT.keep_mask = flipped
         try:
-            refs = plain()
+            refs = plain(q, k, v, do, lens)
         finally:
             FT.keep_mask = keep_mask
         res["flip"] = (b, h, i, j)
-        res["flip_errs"] = {out: _train_err(got, ref, dtype) for out, got,
-                            ref in zip(("o", "dq", "dk", "dv"), (o, *grads),
-                                       refs)}
+        res["flip_errs"] = {out: _train_err(x, ref, dtype) for out, x,
+                            ref in zip(("o", "dq", "dk", "dv"), got, refs)}
         del refs
+    del got
+    edge = [x[:8].contiguous() for x in (q, k, v, do)]
+    edge_lens = torch.as_tensor(_edge_rows(lengths), dtype=torch.int32,
+                                device=DEVICE)
+    got = _train_outputs(FT, *edge, edge_lens, seed, rate, causal, name)
+    res["edge_errs"] = {out: _train_err(x, ref, dtype) for out, x, ref in
+                        zip(("o", "dq", "dk", "dv"), got,
+                            plain(*edge, edge_lens))}
+    del got, edge
     if timing:
         res["ms"] = cuda_ms(lambda: FT.kernel_forward(
             *args, rate, causal, None), reps=5, warmup=1)
-        _, o32, stats = FT.kernel_forward(*args, rate, causal, None)
+        _, stats = FT.kernel_forward(*args, rate, causal, None)
         res["bwd_ms"] = cuda_ms(lambda: FT.kernel_backward(
-            *args, do, o32, stats, rate, causal, None), reps=3, warmup=1)
+            *args, do, stats, rate, causal, None), reps=3, warmup=1)
+    if timing is True:
         res["plain_ms"] = cuda_ms(lambda: FT.fused_attention_train_reference(
             *args, rate, causal), reps=2, warmup=1)
         res["plain_bwd_ms"] = cuda_ms(
@@ -676,7 +805,10 @@ def phase_train_kernel(train_packed):
     for name, H, Hkv, Lq, Lk, causal, lengths in _train_shapes(train_packed):
         for dtype in (torch.bfloat16, torch.float32):
             for rate in TRAIN_RATES:
-                timing = dtype == torch.bfloat16
+                # bf16 timed in full at the flagship's shapes; the f32
+                # (SIMT) kernels' own times at the encoder shape
+                timing = Hkv != H and (dtype == torch.bfloat16 or (
+                    "kernel" if name == "encoder self" else False))
                 r = train_kernel_case(name, H, Hkv, Lq, Lk, causal, lengths,
                                       dtype, rate, timing=timing)
                 rel, row = TRAIN_KERNEL_TOL[dtype]
@@ -688,6 +820,13 @@ def phase_train_kernel(train_packed):
                     f"{errs}; max abs err " + " ".join(
                         f"{k} {v:.2e}" for k, v in r["abs_errs"].items()))
                 check(max(r["errs"].values()) <= 1.0, f"{tag} disagrees")
+                edge = " ".join(f"{k} {v:.2e}"
+                                for k, v in r["edge_errs"].items())
+                log(f"  B=8 with rows of length 0 and 1: err over its bound "
+                    f"{edge}")
+                check(max(r["edge_errs"].values()) <= 1.0,
+                      f"{tag}: the batch with rows of length 0 and 1 "
+                      f"disagrees")
                 if "flip" in r:
                     flips = " ".join(f"{k} {v:.2e}"
                                      for k, v in r["flip_errs"].items())
@@ -697,7 +836,11 @@ def phase_train_kernel(train_packed):
                     check(min(r["flip_errs"].values()) > 1.0,
                           f"{tag}: the tolerance does not see one flipped "
                           f"keep bit")
-                if timing:  # max |kernel - plain| in the path's dtype
+                if timing == "kernel":
+                    log(f"  fwd kernel {r['ms']:.3f} ms; bwd kernel "
+                        f"{r['bwd_ms']:.3f} ms")
+                    results[(name, rate, "f32")] = r
+                elif timing:  # max |kernel - plain| in the path's dtype
                     a = r["abs_errs"]
                     worst["fwd"] = max(worst["fwd"], a["o"])
                     worst["bwd"] = max(worst["bwd"], a["dq"], a["dk"],
@@ -1344,6 +1487,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    res = {}
     with Phase("device"):
         card = card_line()
         log(f"card: {card}; torch {torch.__version__} cuda "
@@ -1354,9 +1498,15 @@ def main() -> int:
                  else f"built in {_build.build_seconds:.1f} s")
         log(f"kernels {built} (nvcc {' '.join(_build.NVCC_FLAGS)}, one "
             f"process per source)")
-        for line in _build.build_log.splitlines():
-            if "registers" in line or "spill" in line and " 0 bytes" not in line:
-                log("  ptxas:", line.strip())
+        for fn, regs, st, ld in ptxas_summary(_build.build_log):
+            log(f"  ptxas: {fn}: {regs} registers, spill stores {st} B, "
+                f"spill loads {ld} B")
+        hmma = res["hmma"] = hmma_counts(_build.build())
+        log("tensor-core sentinel, HMMA instructions in the SASS of each "
+            "bf16 kernel: " + ", ".join(f"{k} {n}" for k, n in hmma.items()))
+        check(all(n > 0 for n in hmma.values()),
+              f"a bf16 attention kernel runs no tensor-core instruction: "
+              f"{hmma}")
 
     params, cfg = load_checkpoint(CKPT, device=DEVICE)
     dims = ModelDims.from_config(cfg)
@@ -1375,7 +1525,6 @@ def main() -> int:
            .to(DEVICE) for k in packed[0]}
     main_lengths = (~req["input_mask"]).sum(dim=1).cpu().numpy()
 
-    res = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         if "flash" in phases:
             with Phase("flash"):
@@ -1443,18 +1592,30 @@ def main() -> int:
     # numbers at the encoder self-attention shape, rate 0.2 (the training
     # path's); no library call computes that dropout, so library_ms is
     # null there and SDPA's rate-0 time sits beside the kernel's own
+    # the f32 (SIMT) route's own times at the same shape and rate
+    enc32 = kres[("encoder self", 0.2, "f32")]
     fwd.update(shape="encoder self B=64 H=8 Hkv=2 L=1199 bf16", rate=0.2,
-               ms_rate0=enc0["ms"], library_ms_rate0=enc0["library_ms"])
+               ms_rate0=enc0["ms"], library_ms_rate0=enc0["library_ms"],
+               ms_f32=enc32["ms"])
     bwd.update(shape=fwd["shape"], rate=0.2, ms_rate0=enc0["bwd_ms"],
-               library_ms_rate0=enc0["library_bwd_ms"])
+               library_ms_rate0=enc0["library_bwd_ms"],
+               ms_f32=enc32["bwd_ms"])
+    flash_entry = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "plankassembly_tpu_torch/csrc/attention.cu",
+        "replaces": "plankassembly_tpu/ops/attention.py:95",
+        "launches": serve["bf16"]["flash_attention"],
+        "max_abs_err": flash["err"], "ms": flash["ms"],
+        "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
+        "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
+        "ms_f32": flash["ms_f32"]}
+    # the redesigned kernels: route by dtype (`ms` is the bf16 route's),
+    # and the sentinel's HMMA count of each bf16 kernel
+    for entry in (flash_entry, fwd, bwd):
+        entry["routes"] = dict(ROUTES)
+        entry["hmma"] = {k: res["hmma"][k] for k in MMA_KERNELS[entry["name"]]}
     kernels = [
-        {"name": "flash_attention", "route": "cuda",
-         "source": "plankassembly_tpu_torch/csrc/attention.cu",
-         "replaces": "plankassembly_tpu/ops/attention.py:95",
-         "launches": serve["bf16"]["flash_attention"],
-         "max_abs_err": flash["err"], "ms": flash["ms"],
-         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
-         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"]},
+        flash_entry,
         {"name": "persistent_greedy_decode", "route": "cuda",
          "source": "plankassembly_tpu_torch/csrc/decode.cu",
          "replaces": "plankassembly_tpu/ops/persistent_decode.py:632",

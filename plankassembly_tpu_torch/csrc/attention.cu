@@ -9,21 +9,29 @@
 // 3 * L * 64 * 2 bytes of q/k/v, far above the card's ~295 flops/byte
 // ridge, so the kernel is bound by how fast it multiplies, not by memory.
 //
-// Design: one block of 128 threads per (b, h, tile of 128 queries); each
-// thread owns one query row, keeps q and its output accumulator in
-// registers (f32), and walks the keys in tiles of 64 that the block
-// stages in shared memory as f32. Every thread of a warp reads the same
-// key at the same time, so the shared-memory reads are broadcasts. The
-// softmax is online (running max and sum, rescaled per chunk of 16 keys)
-// and is exact: a masked key scores -1e9 like the plain version, so once a
-// row has seen a real key the masked ones add exactly 0, and a row whose
-// keys are all masked averages V uniformly instead of giving NaN. Key
-// tiles past kv_lengths[b] (and past the tile's last row when causal) are
-// skipped when the row has a real key, which is exact for the same reason.
-// The kv head of query head h is h / (H / Hkv): grouped-query K/V is read
-// in place, never repeated. This is the simple SIMT version; a tensor-core
-// (wgmma) version is later work.
-#include "common.cuh"
+// Two routes, chosen by dtype alone:
+// - bf16 (the serving path): `flash_mma_kernel`, the tensor-core tile
+//   routine of attn_mma.cuh (`fwd_tile`): 4 warps per 64 query rows,
+//   K/V tiles of 64 keys staged with cp.async into swizzled shared memory,
+//   S = Q K^T on mma.sync (exact: q and k are bf16), the online softmax on
+//   the accumulator fragments, and P V as two bf16 products, P's high and
+//   low halves, into one f32 accumulator, so that P keeps 16 significant
+//   bits where bf16 alone would keep 8 (see attn_mma.cuh).
+// - f32: the SIMT kernel below, because tensor cores take f32 only as
+//   TF32 (10 mantissa bits), which would break the f32 bounds. One block
+//   of 128 threads per (b, h, tile of 128 queries); each thread owns one
+//   query row, keeps q and its output accumulator in registers, and walks
+//   the keys in tiles of 64 staged in shared memory, so every thread of a
+//   warp reads the same key at the same time (a broadcast).
+// Both are exact softmaxes with an online max: a masked key scores -1e9
+// like the plain version, so once a row has seen a real key the masked
+// ones add exactly 0, and a row whose keys are all masked averages V
+// uniformly over Lk instead of giving NaN. Key tiles past kv_lengths[b]
+// (and past the tile's last row when causal) are skipped when the row has
+// a real key, which is exact for the same reason. The kv head of query
+// head h is h / (H / Hkv): grouped-query K/V is read in place, never
+// repeated.
+#include "attn_mma.cuh"
 
 namespace plank {
 
@@ -132,16 +140,47 @@ __global__ void __launch_bounds__(kQTile)
   for (int d = 0; d < kDh; ++d) orow[d] = Elem<T>::store(acc[d] * inv);
 }
 
-template <typename T>
-static void launch(const void* q, const void* k, const void* v,
-                   const int* kv_len, void* out, long long B, long long H,
-                   long long Hkv, long long Lq, long long Lk, float sm_scale,
-                   int causal, cudaStream_t stream) {
+__global__ void __launch_bounds__(attn::kThreads, attn::kFwdBlocks)
+    flash_mma_kernel(attn::FwdArgs p) {
+  attn::fwd_tile(p);
+}
+
+static void launch_f32(const void* q, const void* k, const void* v,
+                       const int* kv_len, void* out, long long B, long long H,
+                       long long Hkv, long long Lq, long long Lk,
+                       float sm_scale, int causal, cudaStream_t stream) {
   dim3 grid((unsigned)((Lq + kQTile - 1) / kQTile), (unsigned)H, (unsigned)B);
-  flash_attn_kernel<T><<<grid, kQTile, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_len, static_cast<T*>(out), (int)H,
+  flash_attn_kernel<float><<<grid, kQTile, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), kv_len, static_cast<float*>(out), (int)H,
       (int)Hkv, (int)Lq, (int)Lk, sm_scale, causal);
+}
+
+static int launch_bf16(const void* q, const void* k, const void* v,
+                       const int* kv_len, void* out, long long B, long long H,
+                       long long Hkv, long long Lq, long long Lk,
+                       float sm_scale, int causal, cudaStream_t stream) {
+  using attn::bf16;
+  if (!attn::aligned16(q) || !attn::aligned16(k) || !attn::aligned16(v) ||
+      !attn::aligned16(out))
+    return cudaErrorMisalignedAddress;
+  attn::FwdArgs p{};
+  p.q = static_cast<const bf16*>(q);
+  p.k = static_cast<const bf16*>(k);
+  p.v = static_cast<const bf16*>(v);
+  p.kv_len = kv_len;
+  p.out = static_cast<bf16*>(out);
+  p.H = (int)H;
+  p.Hkv = (int)Hkv;
+  p.Lq = (int)Lq;
+  p.Lk = (int)Lk;
+  p.Lk_pad = (int)Lk;  // a row with no real key averages over Lk
+  p.sm_scale = sm_scale;
+  p.causal = causal;
+  dim3 grid((unsigned)((Lq + attn::kTile - 1) / attn::kTile), (unsigned)H,
+            (unsigned)B);
+  flash_mma_kernel<<<grid, attn::kThreads, 0, stream>>>(p);
+  return cudaSuccess;
 }
 
 }  // namespace plank
@@ -156,11 +195,13 @@ extern "C" int plank_flash_attention(const void* q, const void* k,
   if (B == 0 || H == 0 || Lq == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* lens = static_cast<const int*>(kv_len);
-  if (is_bf16)
-    plank::launch<__nv_bfloat16>(q, k, v, lens, out, B, H, Hkv, Lq, Lk,
-                                 sm_scale, causal, s);
-  else
-    plank::launch<float>(q, k, v, lens, out, B, H, Hkv, Lq, Lk, sm_scale,
-                         causal, s);
+  if (is_bf16) {
+    const int code = plank::launch_bf16(q, k, v, lens, out, B, H, Hkv, Lq, Lk,
+                                        sm_scale, causal, s);
+    if (code != cudaSuccess) return code;
+  } else {
+    plank::launch_f32(q, k, v, lens, out, B, H, Hkv, Lq, Lk, sm_scale, causal,
+                      s);
+  }
   return (int)cudaGetLastError();
 }

@@ -21,7 +21,10 @@
 // Backward (as `_bwd_kernel`, which applies no mask to ds):
 //   dv_j = sum_i w_ij do_i;  dw_ij = do_i . v_j;
 //   da_ij = keep_ij ? dw_ij / (1 - rate) : 0;  ds_ij = a_ij (da_ij - D_i),
-//   D_i = sum_j da_ij a_ij = do_i . o_i (o in float32, since o = W V);
+//   D_i = sum_j da_ij a_ij (summed, as the TPU kernel does, from the
+//         same products as ds: a row with one real key gets ds = 0
+//         exactly, as in the reference, where do_i . o_i would leave a
+//         rounding residual that the sum over all rows carries into dk);
 //   dq_i = sm_scale sum_j ds_ij k_j;  dk_j = sm_scale sum_i ds_ij q_i.
 // All arithmetic is float32; o and dq are stored in q's type, dk and dv
 // summed over the kv head's query-head group in float32 and stored once in
@@ -31,29 +34,42 @@
 // and 10 (backward) * Lq * len * 64 flops over a few hundred KB of q/k/v,
 // far above the card's ~295 flops/byte ridge.
 //
-// Design (the simple SIMT version; tensor cores are later work): every row
-// (a query row, or a key row in the dK/dV kernel) is owned by a PAIR of
-// threads, each holding half of the row's 64 dimensions (alternate float4
-// chunks, so the pair reads neighbouring shared-memory banks) and finishing
-// each dot product with one shuffle. That keeps four 64-wide f32 rows in
-// registers in the dK/dV kernel.
-// - forward: one block per (b, h, 64 query rows); K/V tiles of 64 keys
-//   staged in shared memory as f32; online softmax in chunks of 16 keys
-//   that accumulates keep * exp(s - m) * v and the UNMASKED sum of
-//   exp(s - m) apart, since dropout scales normalised weights. It stores
-//   o, a float32 copy of o (bf16 only) and each row's (max, sum) for the
-//   backward.
-// - dQ: one block per (b, h, 64 query rows): D_i from do and the f32 o,
-//   then one pass over the keys. It also writes D for the next kernel.
-// - dK/dV: one block per (b, kv head, 64 keys). It loops over the group's
-//   G query heads and over every query row (tiles of 32 staged in shared
-//   memory) and keeps dK and dV in registers: no atomics, a fixed
-//   summation order, and the group sum of JAX's repeated K/V for free.
-// Key tiles past kv_len[b], and (causal) rows before a key tile or keys
-// past a query tile, are skipped when the row has a real key: their
-// weights are exactly 0 there. A row with kv_len[b] == 0 is computed over
-// every key, as the TPU kernel does.
-#include "common.cuh"
+// Two routes, chosen by dtype alone; both have the same three kernels and
+// the same plan: forward; dQ, one block per (b, h, 64 query rows), which
+// first sums D over the keys, writes it, then adds up dq in a second
+// pass; dK/dV, one block per (b, kv head, 64 keys), which loops
+// over the group's G query heads and every query row and keeps dK and dV
+// in registers: no atomics, a fixed summation order (the same result run
+// after run), and the group sum of JAX's repeated K/V for free. Key tiles
+// past kv_len[b], and (causal) rows before a key tile or keys past a query
+// tile, are skipped when the row has a real key: their weights are exactly
+// 0 there. A row with kv_len[b] == 0 is computed over every key, as the
+// TPU kernel does.
+// - bf16 (the training path): tensor cores, on the tile routines of
+//   attn_mma.cuh. The forward is `fwd_tile`, shared with flash_attention.
+//   dQ recomputes S = Q K^T and dP = dO V^T on mma.sync (exact products of
+//   bf16 operands) per 64-key tile and forms a = exp(s - m) / l and the
+//   keep bits on the accumulator fragments, in two passes over the keys:
+//   the first sums D, the second adds ds K as the two bf16 halves (hi,
+//   lo) of ds = a (da - D). dK/dV holds its 64 keys' K and V
+//   as operand fragments, stages the query head's q, do and per-row
+//   (max, 1/sum, D) 64 rows at a time, computes S^T = K Q^T and
+//   dP^T = V dO^T, and adds w^T dO and ds^T Q, each weight split hi/lo:
+//   16 significant bits per weight, so every product is f32-accurate as in
+//   the reference (see attn_mma.cuh). The keep bit of each accumulator
+//   element comes from its (row, column) under the m16n8k16 layout
+//   (`frag_row`, `frag_col`) and the TPU plan's cell of that global row.
+// - f32: SIMT, because tensor cores take f32 only as TF32 (10 mantissa
+//   bits), which would break the f32 bounds and the f32 step golden. Every
+//   row (a query row, or a key row in dK/dV) is owned by a PAIR of
+//   threads, each holding half of the row's 64 dimensions (alternate
+//   float4 chunks, so the pair reads neighbouring shared-memory banks) and
+//   finishing each dot product with one shuffle. The forward stages K/V
+//   tiles of 64 keys as f32 and runs the online softmax in chunks of 16
+//   keys; dK/dV stages query tiles of 32.
+#include <initializer_list>
+
+#include "attn_mma.cuh"
 
 namespace plank {
 namespace ftrain {
@@ -66,36 +82,13 @@ constexpr int kThreads = 2 * kRows;
 constexpr int kKTile = 64;         // keys staged per tile (forward, dQ)
 constexpr int kQTile = 32;         // query rows staged per tile (dK/dV)
 constexpr int kChunk = 16;         // keys per online-softmax update
-constexpr float kNegInf = -1e9f;
+constexpr float kNegInf = attn::kNegInf;
+static_assert(kRows == attn::kTile, "key_end assumes 64-row tiles");
 
-struct Dropout {
-  int enabled;
-  unsigned int threshold;  // keep when hash >= threshold
-  float one_minus_rate;
-  int plan_block;          // the TPU plan's query block
-};
-
-__device__ __forceinline__ unsigned int cell_seed(int seed, int b, int h,
-                                                  int qi) {
-  return (unsigned int)seed + (unsigned int)b * 7919u +
-         (unsigned int)h * 104729u + (unsigned int)qi * 1299721u;
-}
-
-// `_dropout_mask` of the TPU kernel: two xorshift-multiply rounds over
-// (local row, global column, cell seed), all mod 2^32.
-__device__ __forceinline__ bool keep_bit(unsigned int r, unsigned int c,
-                                         unsigned int cell,
-                                         unsigned int threshold) {
-  unsigned int x = r * 0x9E3779B9u;
-  x ^= c * 0x85EBCA6Bu;
-  x += cell * 0xC2B2AE35u;
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x >= threshold;
-}
+using attn::cell_seed;
+using attn::Dropout;
+using attn::keep_bit;
+using attn::key_end;
 
 // chunk index of a thread's i-th owned float4
 __device__ __forceinline__ int own_chunk(int i, int half) {
@@ -163,23 +156,12 @@ __device__ __forceinline__ void stage(float4 (*dst)[kChunks], const T* src,
   }
 }
 
-// end of the keys a query tile [row0, row0 + kRows) must visit: every key
-// when the row has no real key, else up to the length (and the tile's last
-// row when causal)
-__device__ __forceinline__ int key_end(int len, int Lk, int Lq, int row0,
-                                       int causal) {
-  if (len <= 0) return Lk;
-  int kend = min(Lk, len);
-  if (causal) kend = min(kend, min(Lq, row0 + kRows));
-  return kend;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const int* __restrict__ kv_len,
                const int* __restrict__ seed_ptr, T* __restrict__ out,
-               float* __restrict__ out32, float2* __restrict__ stats, int H,
+               float2* __restrict__ stats, int H,
                int Hkv, int Lq, int Lk, int Lk_pad, float sm_scale, int causal,
                Dropout drop) {
   __shared__ float4 ks[kKTile][kChunks];
@@ -266,16 +248,18 @@ __global__ void __launch_bounds__(kThreads)
     o[i] = make_float4(acc[i].x / l / div, acc[i].y / l / div,
                        acc[i].z / l / div, acc[i].w / l / div);
   store_own(out + (bh * Lq + row) * kDh, half, o, 1.f);
-  if (out32 != nullptr) store_own(out32 + (bh * Lq + row) * kDh, half, o, 1.f);
   if (half == 0) stats[bh * Lq + row] = make_float2(m, l);
 }
 
-// dQ, and D_i = do_i . o_i for the dK/dV kernel
+// dQ, and D for the dK/dV kernel, in two passes over the keys: the first
+// sums D_i = sum_j a_ij da_ij as the TPU kernel does (from the same dot
+// products as ds, so a row with one real key gets ds = 0 exactly), the
+// second adds ds k
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
-              const float* __restrict__ o32, const int* __restrict__ kv_len,
+              const int* __restrict__ kv_len,
               const int* __restrict__ seed_ptr,
               const float2* __restrict__ stats, float* __restrict__ dbuf,
               T* __restrict__ dq, int H, int Hkv, int Lq, int Lk,
@@ -298,15 +282,8 @@ __global__ void __launch_bounds__(kThreads)
   float4 qr[kOwn], dor[kOwn], acc[kOwn];
   load_own(q + at * kDh, half, qr);
   load_own(dout + at * kDh, half, dor);
-  load_own(o32 + at * kDh, half, acc);  // o, only to form D
-  float D = 0.f;
 #pragma unroll
-  for (int i = 0; i < kOwn; ++i) {
-    D += dot4(dor[i], acc[i]);
-    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  D += __shfl_xor_sync(0xffffffffu, D, 1);
-  if (active && half == 0) dbuf[at] = D;
+  for (int i = 0; i < kOwn; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   const float2 ml = stats[at];
 
   const unsigned int r = (unsigned int)(srow % drop.plan_block);
@@ -315,26 +292,33 @@ __global__ void __launch_bounds__(kThreads)
   const int len = kv_len[b];
   const int kend = key_end(len, Lk, Lq, tile * kRows, causal);
 
-  for (int k0 = 0; k0 < kend; k0 += kKTile) {
-    __syncthreads();
-    stage(ks, kb, k0, kKTile, Lk);
-    stage(vs, vb, k0, kKTile, Lk);
-    __syncthreads();
-    const int nk = min(kKTile, kend - k0);
-    for (int j = 0; j < nk; ++j) {
-      const int key = k0 + j;
-      float s = pair_dot(qr, ks[j], half);
-      const float dw = pair_dot(dor, vs[j], half);
-      const bool valid = key < len && (!causal || key <= srow);
-      s = valid ? s * sm_scale : kNegInf;
-      const float a = expf(s - ml.x) / ml.y;
-      float da = dw;
-      if (drop.enabled)
-        da = keep_bit(r, (unsigned int)key, cell, drop.threshold)
-                 ? dw / drop.one_minus_rate
-                 : 0.f;
-      axpy_own(acc, a * (da - D), ks[j], half);
+  float D = 0.f;
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int k0 = 0; k0 < kend; k0 += kKTile) {
+      __syncthreads();
+      stage(ks, kb, k0, kKTile, Lk);
+      stage(vs, vb, k0, kKTile, Lk);
+      __syncthreads();
+      const int nk = min(kKTile, kend - k0);
+      for (int j = 0; j < nk; ++j) {
+        const int key = k0 + j;
+        float s = pair_dot(qr, ks[j], half);
+        const float dw = pair_dot(dor, vs[j], half);
+        const bool valid = key < len && (!causal || key <= srow);
+        s = valid ? s * sm_scale : kNegInf;
+        const float a = expf(s - ml.x) / ml.y;
+        float da = dw;
+        if (drop.enabled)
+          da = keep_bit(r, (unsigned int)key, cell, drop.threshold)
+                   ? dw / drop.one_minus_rate
+                   : 0.f;
+        if (pass == 0)
+          D += a * da;
+        else
+          axpy_own(acc, a * (da - D), ks[j], half);
+      }
     }
+    if (pass == 0 && active && half == 0) dbuf[at] = D;
   }
   if (active) store_own(dq + at * kDh, half, acc, sm_scale);
 }
@@ -418,6 +402,282 @@ __global__ void __launch_bounds__(kThreads)
   store_own(dv + kvrow * kDh, half, dva, 1.f);
 }
 
+// ---------------------------------------------------------- bf16 route
+using attn::bf16;
+
+__global__ void __launch_bounds__(attn::kThreads, attn::kFwdBlocks)
+    train_fwd_mma_kernel(attn::FwdArgs p) {
+  attn::fwd_tile(p);
+}
+
+struct BwdArgs {
+  const bf16* q;     // (B, H, Lq, 64)
+  const bf16* k;     // (B, Hkv, Lk, 64)
+  const bf16* v;
+  const bf16* dout;  // (B, H, Lq, 64)
+  const int* kv_len;
+  const int* seed;
+  const float2* stats;  // the forward's per-row (max, sum)
+  float* dbuf;          // (B, H, Lq): D, written by dQ, read by dK/dV
+  bf16* dq;
+  bf16* dk;
+  bf16* dv;
+  int H, Hkv, Lq, Lk;
+  float sm_scale;
+  int causal;
+  Dropout drop;
+};
+
+// dQ and D: one block per (query tile of 64, query head, batch row). Two
+// passes over the row block's key tiles: the first sums
+// D_i = sum_j a_ij da_ij, as the TPU kernel forms it, from the same
+// tensor-core products as ds (so a row whose softmax is one key gets
+// ds = da - D = 0 exactly, as in the reference); the second adds ds K.
+__global__ void __launch_bounds__(attn::kThreads, attn::kDqBlocks)
+    train_dq_mma_kernel(BwdArgs p) {
+  using namespace attn;
+  __shared__ Tile sk[2], sv[2];
+
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int kvh = h / (p.H / p.Hkv);
+  const long long bh = (long long)b * p.H + h;
+  const bf16* kb = p.k + ((long long)b * p.Hkv + kvh) * p.Lk * kDh;
+  const bf16* vb = p.v + ((long long)b * p.Hkv + kvh) * p.Lk * kDh;
+  const int len = p.kv_len[b];
+  const int kend = key_end(len, p.Lk, p.Lq, q0, p.causal);
+  const int ntiles = (kend + kTile - 1) / kTile;
+
+  // q and do go through the second stage's buffers
+  load_tile(sk[1], p.q + bh * p.Lq * kDh, q0, p.Lq);
+  load_tile(sv[1], p.dout + bh * p.Lq * kDh, q0, p.Lq);
+  load_tile(sk[0], kb, 0, p.Lk);
+  load_tile(sv[0], vb, 0, p.Lk);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  unsigned int qa[4][4], da[4][4];
+#pragma unroll
+  for (int kc = 0; kc < kDh / 16; ++kc) {
+    ld_a(qa[kc], sk[1], warp * 16, kc);
+    ld_a(da[kc], sv[1], warp * 16, kc);
+  }
+  int row[2];
+  float D[2] = {0.f, 0.f}, m[2], inv_l[2];
+  unsigned int rA[2] = {0u, 0u}, cC[2] = {0u, 0u};
+#pragma unroll
+  for (int r2 = 0; r2 < 2; ++r2) {
+    row[r2] = q0 + warp * 16 + frag_row(2 * r2);
+    const int i = min(row[r2], p.Lq - 1);
+    const float2 ml = p.stats[bh * p.Lq + i];
+    m[r2] = ml.x;
+    inv_l[r2] = 1.f / ml.y;
+    if (p.drop.enabled) {
+      rA[r2] = (unsigned int)(i % p.drop.plan_block) * kHashR;
+      cC[r2] = cell_seed(p.seed[0], b, h, i / p.drop.plan_block) * kHashCell;
+    }
+  }
+  __syncthreads();  // the second stage is refilled below
+  // a product, not a division, per element
+  const float inv_keep = 1.f / p.drop.one_minus_rate;
+  float dq[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dq[j][i] = 0.f;
+
+  // step u visits key tile u % ntiles in pass u / ntiles
+  for (int u = 0; u < 2 * ntiles; ++u) {
+    const int t = u % ntiles, pass = u / ntiles;
+    if (u + 1 < 2 * ntiles) {
+      const int tn = (u + 1) % ntiles;
+      load_tile(sk[(u + 1) & 1], kb, tn * kTile, p.Lk);
+      load_tile(sv[(u + 1) & 1], vb, tn * kTile, p.Lk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (u == ntiles) {  // D complete
+#pragma unroll
+      for (int r2 = 0; r2 < 2; ++r2) {
+        D[r2] = quad_sum(D[r2]);
+        if ((lane_id() & 3) == 0 && row[r2] < p.Lq)
+          p.dbuf[bh * p.Lq + row[r2]] = D[r2];
+      }
+    }
+    const Tile& K = sk[u & 1];
+#pragma unroll
+    for (int c0 = 0; c0 < kTile; c0 += 32) {  // 32 keys at a time
+      float s[4][4], dp[4][4];
+      mma_abt<4>(s, qa, K, c0);
+      mma_abt<4>(dp, da, sv[u & 1], c0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = t * kTile + c0 + 8 * j + frag_col(i);
+          const int r2 = i >> 1;
+          float a = 0.f, dw = 0.f;
+          if (key < kend) {
+            const float x = key < len && (!p.causal || key <= row[r2])
+                                ? s[j][i] * p.sm_scale
+                                : kNegInf;
+            a = __expf(x - m[r2]) * inv_l[r2];
+            dw = dp[j][i];
+            if (p.drop.enabled)
+              dw = keep_hash(rA[r2], (unsigned int)key * kHashC, cC[r2],
+                             p.drop.threshold)
+                       ? dw * inv_keep
+                       : 0.f;
+          }
+          if (pass == 0)
+            D[r2] += a * dw;
+          else
+            s[j][i] = a * (dw - D[r2]);  // ds
+        }
+      if (pass == 1) mma_weights<4>(dq, s, K, c0);  // dq += ds K
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int r2 = 0; r2 < 2; ++r2) {
+    if (row[r2] >= p.Lq) continue;
+    bf16* out = p.dq + (bh * p.Lq + row[r2]) * kDh;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j + frag_col(0)) =
+          __floats2bfloat162_rn(dq[j][2 * r2] * p.sm_scale,
+                                dq[j][2 * r2 + 1] * p.sm_scale);
+  }
+}
+
+// dK and dV: one block per (key tile of 64, kv head, batch row); it walks
+// (query head of the group, query tile of 64) in order
+__global__ void __launch_bounds__(attn::kThreads, attn::kDkdvBlocks)
+    train_dkdv_mma_kernel(BwdArgs p) {
+  using namespace attn;
+  __shared__ Tile sq[2], sdo[2];
+  __shared__ float sm[2][kTile], sil[2][kTile], sD[2][kTile];
+
+  const int key0 = blockIdx.x * kTile, kvh = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int G = p.H / p.Hkv;
+  const long long kvoff = ((long long)b * p.Hkv + kvh) * p.Lk * kDh;
+  const int len = p.kv_len[b];
+  int key[2];
+  unsigned int kB[2];  // the hash's column products
+#pragma unroll
+  for (int r2 = 0; r2 < 2; ++r2) {
+    key[r2] = key0 + warp * 16 + frag_row(2 * r2);
+    kB[r2] = (unsigned int)key[r2] * kHashC;
+  }
+  float dk[8][4], dv[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk[j][i] = dv[j][i] = 0.f;
+
+  // with a real key in every row, keys past the length get weight 0 from
+  // every row
+  if (!(len > 0 && key0 >= min(p.Lk, len))) {
+    load_tile(sq[0], p.k + kvoff, key0, p.Lk);
+    load_tile(sdo[0], p.v + kvoff, key0, p.Lk);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    unsigned int ka[4][4], va[4][4];
+#pragma unroll
+    for (int kc = 0; kc < kDh / 16; ++kc) {
+      ld_a(ka[kc], sq[0], warp * 16, kc);
+      ld_a(va[kc], sdo[0], warp * 16, kc);
+    }
+    __syncthreads();
+    // (causal) rows before this tile see none of its keys
+    const int i_begin = (len > 0 && p.causal) ? min(p.Lq, key0) : 0;
+    const int nq = (p.Lq - i_begin + kTile - 1) / kTile;
+    const int items = G * nq;
+    const float inv_keep = 1.f / p.drop.one_minus_rate;
+    // q, do and the per-row (max, 1/sum, D) of item `it` into stage st;
+    // rows past Lq get weight 0
+    auto stage = [&](int it, int st) {
+      const int i0 = i_begin + (it % nq) * kTile;
+      const long long bh = (long long)b * p.H + kvh * G + it / nq;
+      load_tile(sq[st], p.q + bh * p.Lq * kDh, i0, p.Lq);
+      load_tile(sdo[st], p.dout + bh * p.Lq * kDh, i0, p.Lq);
+      if (threadIdx.x < kTile) {
+        const int i = i0 + threadIdx.x;
+        const bool ok = i < p.Lq;
+        const float2 ml = ok ? p.stats[bh * p.Lq + i] : make_float2(0.f, 1.f);
+        sm[st][threadIdx.x] = ml.x;
+        sil[st][threadIdx.x] = ok ? 1.f / ml.y : 0.f;
+        sD[st][threadIdx.x] = ok ? p.dbuf[bh * p.Lq + i] : 0.f;
+      }
+    };
+    if (items > 0) stage(0, 0);
+    cp_async_commit();
+    for (int t = 0; t < items; ++t) {
+      if (t + 1 < items) stage(t + 1, (t + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      const int st = t & 1;
+      const int h = kvh * G + t / nq, i0 = i_begin + (t % nq) * kTile;
+      // the tile's 64 rows lie in one cell of the TPU plan (its query
+      // block is a multiple of 64): local row r0 + c, one cell seed
+      const int r0 = p.drop.enabled ? i0 % p.drop.plan_block : 0;
+      const unsigned int cC =
+          p.drop.enabled
+              ? cell_seed(p.seed[0], b, h, i0 / p.drop.plan_block) * kHashCell
+              : 0u;
+#pragma unroll
+      for (int c0 = 0; c0 < kTile; c0 += 32) {  // 32 query rows at a time
+        float s[4][4], dp[4][4];
+        mma_abt<4>(s, ka, sq[st], c0);   // S^T = K Q^T
+        mma_abt<4>(dp, va, sdo[st], c0);  // dP^T = V dO^T
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int c = c0 + 8 * j + frag_col(i), qi = i0 + c;
+            const int kj = key[i >> 1];
+            const float x = kj < len && (!p.causal || kj <= qi)
+                                ? s[j][i] * p.sm_scale
+                                : kNegInf;
+            const float a = __expf(x - sm[st][c]) * sil[st][c];
+            float w = a, dw = dp[j][i];
+            if (p.drop.enabled) {
+              const bool keep = keep_hash((unsigned int)(r0 + c) * kHashR,
+                                          kB[i >> 1], cC, p.drop.threshold);
+              w = keep ? a * inv_keep : 0.f;
+              dw = keep ? dw * inv_keep : 0.f;
+            }
+            s[j][i] = w;
+            dp[j][i] = a * (dw - sD[st][c]);
+          }
+        mma_weights<4>(dv, s, sdo[st], c0);  // dv += w^T do
+        mma_weights<4>(dk, dp, sq[st], c0);  // dk += ds^T q
+      }
+      __syncthreads();
+    }
+    cp_async_wait<0>();
+  }
+#pragma unroll
+  for (int r2 = 0; r2 < 2; ++r2) {
+    if (key[r2] >= p.Lk) continue;
+    const long long at = kvoff + (long long)key[r2] * kDh;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int d = 8 * j + frag_col(0);
+      *reinterpret_cast<__nv_bfloat162*>(p.dk + at + d) =
+          __floats2bfloat162_rn(dk[j][2 * r2] * p.sm_scale,
+                                dk[j][2 * r2 + 1] * p.sm_scale);
+      *reinterpret_cast<__nv_bfloat162*>(p.dv + at + d) =
+          __floats2bfloat162_rn(dv[j][2 * r2], dv[j][2 * r2 + 1]);
+    }
+  }
+}
+
 inline dim3 grid_of(long long rows, long long heads, long long B) {
   return dim3((unsigned)((rows + kRows - 1) / kRows), (unsigned)heads,
               (unsigned)B);
@@ -438,9 +698,15 @@ static Dropout make_dropout(int enabled, unsigned int threshold,
   return d;
 }
 
+static bool all_aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (!plank::attn::aligned16(p)) return false;
+  return true;
+}
+
 extern "C" int plank_flash_train_fwd(
     const void* q, const void* k, const void* v, const void* kv_len,
-    const void* seed, void* out, void* out32, void* stats, long long B,
+    const void* seed, void* out, void* stats, long long B,
     long long H, long long Hkv, long long Lq, long long Lk, long long Dh,
     long long Lk_pad, float sm_scale, int causal, int dropout,
     unsigned int threshold, float one_minus_rate, long long plan_block,
@@ -451,21 +717,34 @@ extern "C" int plank_flash_train_fwd(
   if (B == 0 || H == 0 || Lq == 0 || Lk == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout d = make_dropout(dropout, threshold, one_minus_rate, plan_block);
-  const dim3 grid = grid_of(Lq, H, B);
   const int* lens = static_cast<const int*>(kv_len);
   const int* sd = static_cast<const int*>(seed);
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    fwd_kernel<T><<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), lens, sd, static_cast<T*>(out),
-        static_cast<float*>(out32), static_cast<float2*>(stats), (int)H,
-        (int)Hkv, (int)Lq, (int)Lk, (int)Lk_pad, sm_scale, causal, d);
-  } else {
-    fwd_kernel<float><<<grid, kThreads, 0, s>>>(
+  if (is_bf16) {  // tensor cores
+    if (!all_aligned16({q, k, v, out, stats}))
+      return cudaErrorMisalignedAddress;
+    plank::attn::FwdArgs p{};
+    p.q = static_cast<const bf16*>(q);
+    p.k = static_cast<const bf16*>(k);
+    p.v = static_cast<const bf16*>(v);
+    p.kv_len = lens;
+    p.seed = sd;
+    p.out = static_cast<bf16*>(out);
+    p.stats = static_cast<float2*>(stats);
+    p.H = (int)H;
+    p.Hkv = (int)Hkv;
+    p.Lq = (int)Lq;
+    p.Lk = (int)Lk;
+    p.Lk_pad = (int)Lk_pad;
+    p.sm_scale = sm_scale;
+    p.causal = causal;
+    p.drop = d;
+    train_fwd_mma_kernel<<<grid_of(Lq, H, B), plank::attn::kThreads, 0, s>>>(
+        p);
+  } else {  // SIMT
+    fwd_kernel<float><<<grid_of(Lq, H, B), kThreads, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), lens, sd, static_cast<float*>(out),
-        static_cast<float*>(out32), static_cast<float2*>(stats), (int)H,
+        static_cast<float2*>(stats), (int)H,
         (int)Hkv, (int)Lq, (int)Lk, (int)Lk_pad, sm_scale, causal, d);
   }
   return (int)cudaGetLastError();
@@ -474,7 +753,7 @@ extern "C" int plank_flash_train_fwd(
 // dq (then dk and dv); `dbuf` is (B, H, Lq) float32 scratch for D
 extern "C" int plank_flash_train_bwd(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* o32, const void* kv_len, const void* seed, const void* stats,
+    const void* kv_len, const void* seed, const void* stats,
     void* dbuf, void* dq, void* dk, void* dv, long long B, long long H,
     long long Hkv, long long Lq, long long Lk, long long Dh, float sm_scale,
     int causal, int dropout, unsigned int threshold, float one_minus_rate,
@@ -489,24 +768,38 @@ extern "C" int plank_flash_train_bwd(
   const int* sd = static_cast<const int*>(seed);
   const float2* st = static_cast<const float2*>(stats);
   float* D = static_cast<float*>(dbuf);
-  const float* o = static_cast<const float*>(o32);
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    dq_kernel<T><<<grid_of(Lq, H, B), kThreads, 0, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), o, lens, sd,
-        st, D, static_cast<T*>(dq), (int)H, (int)Hkv, (int)Lq, (int)Lk,
-        sm_scale, causal, d);
-    dkdv_kernel<T><<<grid_of(Lk, Hkv, B), kThreads, 0, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lens, sd, st,
-        D, static_cast<T*>(dk), static_cast<T*>(dv), (int)H, (int)Hkv,
-        (int)Lq, (int)Lk, sm_scale, causal, d);
-  } else {
+  if (is_bf16) {  // tensor cores
+    if (plan_block % plank::attn::kTile != 0) return cudaErrorInvalidValue;
+    if (!all_aligned16({q, k, v, dout, dq, dk, dv}))
+      return cudaErrorMisalignedAddress;
+    BwdArgs p{};
+    p.q = static_cast<const bf16*>(q);
+    p.k = static_cast<const bf16*>(k);
+    p.v = static_cast<const bf16*>(v);
+    p.dout = static_cast<const bf16*>(dout);
+    p.kv_len = lens;
+    p.seed = sd;
+    p.stats = st;
+    p.dbuf = D;
+    p.dq = static_cast<bf16*>(dq);
+    p.dk = static_cast<bf16*>(dk);
+    p.dv = static_cast<bf16*>(dv);
+    p.H = (int)H;
+    p.Hkv = (int)Hkv;
+    p.Lq = (int)Lq;
+    p.Lk = (int)Lk;
+    p.sm_scale = sm_scale;
+    p.causal = causal;
+    p.drop = d;
+    train_dq_mma_kernel<<<grid_of(Lq, H, B), plank::attn::kThreads, 0, s>>>(
+        p);
+    train_dkdv_mma_kernel<<<grid_of(Lk, Hkv, B), plank::attn::kThreads, 0,
+                            s>>>(p);
+  } else {  // SIMT
     using T = float;
     dq_kernel<T><<<grid_of(Lq, H, B), kThreads, 0, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), o, lens, sd,
+        static_cast<const T*>(v), static_cast<const T*>(dout), lens, sd,
         st, D, static_cast<T*>(dq), (int)H, (int)Hkv, (int)Lq, (int)Lk,
         sm_scale, causal, d);
     dkdv_kernel<T><<<grid_of(Lk, Hkv, B), kThreads, 0, s>>>(

@@ -118,16 +118,16 @@ def _declare(lib):
     lib.plank_decode_setup.argtypes = [P]
     lib.plank_decode_setup.restype = I32
     lib.plank_flash_train_fwd.argtypes = [
-        P, P, P, P, P, P, P, P,             # q, k, v, kv_len, seed, out,
-                                            # out32, stats
+        P, P, P, P, P, P, P,                # q, k, v, kv_len, seed, out,
+                                            # stats
         I64, I64, I64, I64, I64, I64, I64,  # B, H, Hkv, Lq, Lk, Dh, Lk_pad
         F32, I32, I32, U32, F32, I64,       # sm_scale, causal, dropout,
                                             # threshold, 1 - rate, plan block
         I32, P]                             # is_bf16, stream
     lib.plank_flash_train_fwd.restype = I32
     lib.plank_flash_train_bwd.argtypes = [
-        P, P, P, P, P, P, P, P, P,          # q, k, v, dout, o32, kv_len,
-                                            # seed, stats, dbuf
+        P, P, P, P, P, P, P, P,             # q, k, v, dout, kv_len, seed,
+                                            # stats, dbuf
         P, P, P,                            # dq, dk, dv
         I64, I64, I64, I64, I64, I64,       # B, H, Hkv, Lq, Lk, Dh
         F32, I32, I32, U32, F32, I64,       # sm_scale, causal, dropout,

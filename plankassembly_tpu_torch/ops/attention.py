@@ -10,7 +10,8 @@ not -inf, so a row whose keys are all masked averages V uniformly instead
 of giving NaN. Accumulation is float32; the output has q's dtype.
 
 A CPU tensor goes to `flash_attention_reference`; a CUDA tensor goes to
-the kernel in `csrc/attention.cu` or raises.
+the kernel in `csrc/attention.cu` or raises: bf16 to the tensor-core
+kernel (`csrc/attn_mma.cuh`), float32 to the SIMT one.
 """
 from __future__ import annotations
 

@@ -23,7 +23,8 @@ query head h reading kv head h // (H/Hkv):
 
 A CPU tensor goes to the plain version (`fused_attention_train_reference`
 forward, `fused_attention_train_reference_bwd` backward); a CUDA tensor
-goes to the kernels in `csrc/flash_train.cu` or raises.
+goes to the kernels in `csrc/flash_train.cu` or raises: bf16 to the
+tensor-core kernels (`csrc/attn_mma.cuh`), float32 to the SIMT ones.
 """
 from __future__ import annotations
 
@@ -231,7 +232,7 @@ def _dropout_args(rate, Lq, Lk):
 
 
 def kernel_forward(q, k, v, kv_lengths, seed, rate, causal, sm_scale):
-    """Launch the forward kernel: (o, o in float32, per-row (max, sum))."""
+    """Launch the forward kernel: (o, per-row (max, sum))."""
     global fwd_launches
     _check_cuda(q, k, v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -240,24 +241,21 @@ def kernel_forward(q, k, v, kv_lengths, seed, rate, causal, sm_scale):
     lengths = kv_lengths.to(device=q.device, dtype=torch.int32).contiguous()
     seed_t = _seed_tensor(seed, q.device)
     out = torch.empty_like(q)
-    out32 = out if q.dtype == torch.float32 else torch.empty(
-        q.shape, dtype=torch.float32, device=q.device)
     stats = torch.empty((B, H, Lq, 2), dtype=torch.float32, device=q.device)
     lib = _build.library()
     code = lib.plank_flash_train_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        seed_t.data_ptr(), out.data_ptr(),
-        out32.data_ptr() if out32 is not out else None, stats.data_ptr(),
+        seed_t.data_ptr(), out.data_ptr(), stats.data_ptr(),
         B, H, Hkv, Lq, Lk, Dh, plan(Lq, Lk)[2], _sm_scale(sm_scale, Dh),
         int(causal), *_dropout_args(rate, Lq, Lk),
         int(q.dtype == torch.bfloat16), _build.stream_handle(q.device))
     _build.check(code, "plank_flash_train_fwd")
     fwd_launches += 1
-    return out, out32, stats
+    return out, stats
 
 
-def kernel_backward(q, k, v, kv_lengths, seed, do, out32, stats, rate,
-                    causal, sm_scale):
+def kernel_backward(q, k, v, kv_lengths, seed, do, stats, rate, causal,
+                    sm_scale):
     """Launch the backward kernels (dQ, then dK/dV): (dq, dk, dv)."""
     global bwd_launches
     _check_cuda(q, k, v)
@@ -272,9 +270,9 @@ def kernel_backward(q, k, v, kv_lengths, seed, do, out32, stats, rate,
     lib = _build.library()
     code = lib.plank_flash_train_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        out32.data_ptr(), lengths.data_ptr(), seed_t.data_ptr(),
-        stats.data_ptr(), dbuf.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, H, Hkv, Lq, Lk, Dh, _sm_scale(sm_scale, Dh),
+        lengths.data_ptr(), seed_t.data_ptr(), stats.data_ptr(),
+        dbuf.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H,
+        Hkv, Lq, Lk, Dh, _sm_scale(sm_scale, Dh),
         int(causal), *_dropout_args(rate, Lq, Lk),
         int(q.dtype == torch.bfloat16), _build.stream_handle(q.device))
     _build.check(code, "plank_flash_train_bwd")
@@ -285,18 +283,18 @@ def kernel_backward(q, k, v, kv_lengths, seed, do, out32, stats, rate,
 class _Kernel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, kv_lengths, seed, rate, causal, sm_scale):
-        out, out32, stats = kernel_forward(q, k, v, kv_lengths, seed, rate,
-                                           causal, sm_scale)
+        out, stats = kernel_forward(q, k, v, kv_lengths, seed, rate, causal,
+                                    sm_scale)
         ctx.save_for_backward(q, k, v, kv_lengths, torch.as_tensor(seed),
-                              out32, stats)
+                              stats)
         ctx.args = (rate, causal, sm_scale)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, kv_lengths, seed, out32, stats = ctx.saved_tensors
-        dq, dk, dv = kernel_backward(q, k, v, kv_lengths, seed, do, out32,
-                                     stats, *ctx.args)
+        q, k, v, kv_lengths, seed, stats = ctx.saved_tensors
+        dq, dk, dv = kernel_backward(q, k, v, kv_lengths, seed, do, stats,
+                                     *ctx.args)
         return dq, dk, dv, None, None, None, None, None
 
 
