@@ -10,7 +10,9 @@ instead of hanging, each printing one line (or a few) when it ends:
    kernels in plankassembly_tpu_torch/csrc (build seconds, registers and
    spills of each kernel); the tensor-core sentinel: the HMMA
    instructions of each bf16 attention kernel in `cuobjdump --dump-sass`
-   of the built library, which must not be 0;
+   of the built library, which must not be 0, and of the fused decode
+   layer's bf16 tensor-core GEMM, with the asynchronous copies (LDGSTS,
+   UBLKCP, UTMALDG) of the redesigned decode kernels, none of them 0;
 2. flash_attention (CUDA) against its plain version at encoder shapes:
    B=64, H=8, L=1280, ragged lengths with a row of length 0 and one of
    length 1, causal and not, bf16 (tensor cores) and f32 (SIMT); and at
@@ -51,9 +53,16 @@ instead of hanging, each printing one line (or a few) when it ends:
    checkpoints/mha_complete_ep59.npz's encoder, bucket 1152, bf16 and
    f32): cross_attn_decode on int8 and on compute-dtype K/V, and
    fused_decoder_layer / fused_ffn at a mid-decode step whose caches come
-   from a real run; kernel, plain and bound times (and
+   from a real run, each also on ragged rows (no real key, one, a masked
+   key inside a row); kernel, plain and bound times (and
    scaled_dot_product_attention beside the compute-dtype cross_attn_decode,
-   a yardstick only);
+   a yardstick only), cross_attn_decode's device time with every key
+   real, and the device time of each kernel of one layer; then
+   fused_decoder_layer along the plain version's own decode, every layer
+   at TRAJ_STEPS, kernel and plain version on the same inputs: the
+   (point, row) pairs over FUSED_ROW_TOL (at most TRAJ_ROW_SHARE of
+   them), the planted fault's (more than TRAJ_PLANTED_SHARE), and the
+   new K/V's int8 flips, counted apart;
 9. mha_serve: ep59 serves the 64 fixture drawings through make_live_backend
    + BatchingServer with cross_impl "kernel" and "fused", as requests of
    8, 24 and 32, in bf16 and f32, scored against the JAX reference's
@@ -149,6 +158,16 @@ CROSS_TOL = 1e-4
 FUSED_ROW_TOL = 1e-4
 FFN_TOL = 1e-4                 # fused_ffn: f32 sums in another order
 MID_STEP, MID_LAYER = 48, 3    # where the fused layer is checked
+# fused_decoder_layer along the plain version's own decode: every layer at
+# these steps, the kernel and the plain version on the same inputs. A sum
+# in another order can put a bf16 or int8 rounding on the other side of a
+# tie and move that row past FUSED_ROW_TOL; such flips are rare and touch
+# single rows, a fault touches most of them. So the kernel may put at most
+# TRAJ_ROW_SHARE of the (point, row) pairs over FUSED_ROW_TOL, and the
+# planted fault must put more than TRAJ_PLANTED_SHARE of them over it
+TRAJ_STEPS = tuple(range(8, 72, 8))
+TRAJ_ROW_SHARE = 0.02
+TRAJ_PLANTED_SHARE = 0.2
 MHA_F1_TOL = {"bf16": 0.01, "f32": 0.002}   # kernel path vs the JAX golden
 FUSED_PLAIN_F1_TOL = 0.005     # fused kernels vs their plain versions
 
@@ -190,12 +209,9 @@ def cuda_ms(fn, reps=10, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def kernel_ms(fn, reps=10, warmup=2):
-    """Device time of one fn() call in ms: the CUDA kernels it launches,
-    summed over `reps` calls under torch.profiler, over reps. Unlike
-    cuda_ms it leaves out the gaps while the host prepares the next launch,
-    which for a wrapper whose host work outlasts its kernels (the decode
-    kernels at serving batch) are most of the events' span."""
+def _profile_kernels(fn, reps, warmup):
+    """{kernel name: (device us, launches)} of `reps` fn() calls under
+    torch.profiler, after `warmup` calls."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -208,16 +224,68 @@ def kernel_ms(fn, reps=10, warmup=2):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = 0.0
+        kernels = {}
         for e in prof.key_averages():
             if e.device_type == torch.autograd.DeviceType.CUDA:
-                us += float(getattr(e, "self_device_time_total",
-                                    getattr(e, "self_cuda_time_total", 0.0)))
-        if us > 0:
+                us = float(getattr(e, "self_device_time_total",
+                                   getattr(e, "self_cuda_time_total", 0.0)))
+                kernels[e.key] = (us, int(e.count))
+        if sum(us for us, _ in kernels.values()) > 0:
             break
         log(f"  the profiler saw no device time (session {attempt + 1})")
-    check(us > 0, "the profiler saw no device time")
-    return us / 1e3 / reps
+    check(sum(us for us, _ in kernels.values()) > 0,
+          "the profiler saw no device time")
+    return kernels
+
+
+def kernel_ms(fn, reps=10, warmup=2):
+    """Device time of one fn() call in ms: the CUDA kernels it launches,
+    summed over `reps` calls under torch.profiler, over reps. Unlike
+    cuda_ms it leaves out the gaps while the host prepares the next launch,
+    which for a wrapper whose host work outlasts its kernels (the decode
+    kernels at serving batch) are most of the events' span."""
+    kernels = _profile_kernels(fn, reps, warmup)
+    return sum(us for us, _ in kernels.values()) / 1e3 / reps
+
+
+def _short_kernel_name(name):
+    """A kernel's name without `void`, its argument list and namespaces."""
+    name = re.sub(r"^void ", "", name)
+    depth, cut = 0, len(name)
+    for i, ch in enumerate(name):  # the argument list: the last top-level (
+        if ch == "<":
+            depth += 1
+        elif ch == ">":
+            depth -= 1
+        elif ch == "(" and depth == 0:
+            cut = i
+    name = name[:cut]
+    return re.sub(r"\bplank::(gemm::|attn::)?", "", name).replace(
+        "__nv_bfloat16", "bf16")
+
+
+def kernel_breakdown(fn, reps=20, warmup=3):
+    """Each kernel that one fn() call launches: [(short name, launches per
+    call, device us per call)], the longest first (torch.profiler). A
+    session that recorded only some of the calls (a launch count that is
+    not a multiple of reps, seen on the H100 after many sessions) is taken
+    again, up to twice; a fractional count in the result marks one that
+    stayed partial."""
+    for attempt in range(3):
+        kernels = _profile_kernels(fn, reps, warmup)
+        if all(n % reps == 0 for _, n in kernels.values()):
+            break
+        log(f"  the profiler recorded part of the calls (session "
+            f"{attempt + 1})")
+    rows = [(_short_kernel_name(k), n / reps, us / reps)
+            for k, (us, n) in kernels.items()]
+    return sorted(rows, key=lambda r: -r[2])
+
+
+def breakdown_line(rows):
+    total = sum(us for _, _, us in rows)
+    return "; ".join(f"{name} x{n:g} {us:.2f} us ({us / total:.1%})"
+                     for name, n, us in rows) + f"; total {total:.2f} us"
 
 
 def ptxas_summary(build_log):
@@ -250,11 +318,23 @@ MMA_KERNELS = {"flash_attention": ("flash_mma_kernel",),
 # each kernel's route by dtype: the tensor cores take f32 only as TF32, so
 # the f32 form stays on the SIMT kernels
 ROUTES = {"bf16": "cuda-mma", "f32": "cuda-simt"}
+# the fused layer's products by dtype (csrc/fused_decode.cu says why)
+FUSED_ROUTES = {"bf16": "cuda-mma (woc, w1, w2), cuda-simt-order (qkv, wo, "
+                        "cross-q)", "f32": "cuda-simt-order"}
+# the decode kernels redesigned around asynchronous copies, and those of
+# them that run on the tensor cores: the bf16 GEMM of the fused layer, a
+# template with one function per route, prologue and epilogue, whose
+# tensor-core instances mangle as cluster_gemm_kernel<true, ...>
+ASYNC_KERNELS = {"cross_attn_decode": ("cross_attn_cluster_kernel",),
+                 "fused_decoder_layer": ("fused_cross_split_kernel",
+                                         "cluster_gemm_kernel")}
+DECODE_MMA_KERNELS = {"fused_decoder_layer": ("cluster_gemm_kernelILb1E",)}
+ASYNC_COPY = re.compile(r"\b(LDGSTS|UBLKCP|UTMALDG)\b")
 
 
-def hmma_counts(lib_path):
-    """HMMA (tensor-core) instructions of each function of MMA_KERNELS in
-    the SASS of the built library."""
+def sass_counts(lib_path):
+    """Per function of the built library's SASS: (HMMA instructions,
+    asynchronous copy instructions: LDGSTS, UBLKCP or UTMALDG)."""
     from plankassembly_tpu_torch.ops import _build
     tool = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -266,15 +346,34 @@ def hmma_counts(lib_path):
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            per_fn.setdefault(fn, 0)
-        elif fn is not None and re.search(r"\bHMMA\b", line):
-            per_fn[fn] += 1
+            per_fn.setdefault(fn, [0, 0])
+        elif fn is not None:
+            per_fn[fn][0] += bool(re.search(r"\bHMMA\b", line))
+            per_fn[fn][1] += bool(ASYNC_COPY.search(line))
+    return per_fn
+
+
+def hmma_counts(per_fn):
+    """HMMA instructions of each function of MMA_KERNELS."""
     counts = {}
     for kernels in MMA_KERNELS.values():
         for k in kernels:
             hits = [n for n in per_fn if k in n]
             check(len(hits) == 1, f"{k}: {len(hits)} functions in the SASS")
-            counts[k] = per_fn[hits[0]]
+            counts[k] = per_fn[hits[0]][0]
+    return counts
+
+
+def least_counts(per_fn, kernels, which):
+    """For each named kernel, the fewest instructions of kind `which` (0:
+    HMMA, 1: asynchronous copies) over its functions (one per template
+    instance)."""
+    counts = {}
+    for names in kernels.values():
+        for k in names:
+            hits = [n for n in per_fn if k in n]
+            check(len(hits) >= 1, f"{k}: no function in the SASS")
+            counts[k] = min(per_fn[n][which] for n in hits)
     return counts
 
 
@@ -1107,7 +1206,28 @@ def cross_case(q, k, v, bias, ks, vs, real, H, timing):
                   + H * real * (2 * Dh * k.element_size() + 4))
         res["bound_ms"], res["bound_by"] = _bound(
             nbytes, [(4.0 * Dh * H * real, PEAK_FLOPS[q.dtype])])
+        # what skipping the spans with no real key saves: the kernel's
+        # device time with every key of the bucket real, beside its time on
+        # the real mask
+        every = torch.zeros_like(bias)
+        res["every_key_device_ms"] = kernel_ms(
+            lambda: CD.cross_attn_decode(q, k, v, every, ks, vs,
+                                         sm_scale=sm), reps=20, warmup=3)
     return res
+
+
+def ragged_mask(mask):
+    """The main request's mask (True: padded key) with three rows changed:
+    row 0 has no real key, row 1 only key 0, and row 2 its middle real key
+    masked (a masked key inside the row's extent)."""
+    rag = mask.clone()
+    rag[0] = True
+    rag[1] = True
+    rag[1, 0] = False
+    real2 = torch.nonzero(~mask[2]).flatten()
+    check(real2.numel() >= 3, "row 2 of the main request is too short")
+    rag[2, real2[real2.numel() // 2]] = True
+    return rag
 
 
 def _dtype_name(x):
@@ -1156,6 +1276,86 @@ def fused_bound(dims, cd, B, t, real, ffn_only=False):
     mm = 2.0 * B * 6 * D * D + ffn_ops
     att = 4.0 * Dh * H * (B * t + real)
     return _bound(nbytes, [(mm, PEAK_FLOPS[cd]), (att, PEAK_INT8_OPS)])
+
+
+def fused_trajectory(params, memory, mask, dims, cd, steps=TRAJ_STEPS):
+    """fused_decoder_layer against its plain version at every layer of
+    `steps`, on the plain version's own decode (the `fused` loop with the
+    plain layer, on the card), both fed the same inputs at each point.
+    Returns one dict per point: each row's error over its largest value
+    (`row_errs`), the same for the planted fault (one cross weight scale
+    per row), and the new K/V's int8 values that differ (`nk_flips`,
+    `nv_flips`): an int8 flip counted apart from the rows it moves."""
+    from plankassembly_tpu_torch.decode import FusedDecode
+    from plankassembly_tpu_torch.ops import fused_decode as FD
+    kernel = FD.fused_decoder_layer
+    kw = dict(H=dims.num_head, Dh=dims.head_dim,
+              sm_scale=1.0 / math.sqrt(dims.head_dim), cd=cd)
+
+    def rows(a, b):
+        return ((a - b).abs().amax(dim=1) / b.abs().amax(dim=1)).tolist()
+
+    points = []
+    with torch.no_grad(), _plain():
+        dec = FusedDecode(params, memory, mask, dims, cd)
+        for t in range(max(steps) + 1):
+            if t in steps:
+                x = dec.embed(t)
+                for layer in range(dims.num_decoder_layers):
+                    largs = (x, t, *dec.layer_args(layer))
+                    got = kernel(*largs, **kw)
+                    ref = FD.fused_decoder_layer_reference(*largs, **kw)
+                    with _patched(FD, chunk_width=lambda Li: Li):
+                        bad = FD.fused_decoder_layer_reference(*largs,
+                                                               **kw)[0]
+                    points.append({
+                        "t": t, "layer": layer,
+                        "row_errs": rows(got[0], ref[0]),
+                        "planted_row_errs": rows(bad, ref[0]),
+                        "nk_flips": int((got[1] != ref[1]).sum().item()),
+                        "nv_flips": int((got[2] != ref[2]).sum().item())})
+                    x = ref[0]
+            dec.step(t)
+    return points
+
+
+def trajectory_summary(points):
+    """Counts over fused_trajectory's points: pairs over FUSED_ROW_TOL for
+    the kernel and the planted fault, points with any, int8 flips, the
+    worst points."""
+    pairs = sum(len(p["row_errs"]) for p in points)
+    over = sum(e > FUSED_ROW_TOL for p in points for e in p["row_errs"])
+    bad = sum(e > FUSED_ROW_TOL for p in points
+              for e in p["planted_row_errs"])
+    errs = sorted(e for p in points for e in p["row_errs"])
+    worst = sorted(points, key=lambda p: -max(p["row_errs"]))[:4]
+    return {"points": len(points), "pairs": pairs, "rows_over": over,
+            "points_over": sum(max(p["row_errs"]) > FUSED_ROW_TOL
+                               for p in points),
+            "median_row_err": errs[len(errs) // 2],
+            "max_row_err": errs[-1],
+            "planted_rows_over": bad,
+            "nk_flips": sum(p["nk_flips"] for p in points),
+            "nv_flips": sum(p["nv_flips"] for p in points),
+            "points_with_flips": sum(bool(p["nk_flips"] or p["nv_flips"])
+                                     for p in points),
+            "worst": [f"t{p['t']} l{p['layer']} {max(p['row_errs']):.3e} "
+                      f"(flips {p['nk_flips']}+{p['nv_flips']})"
+                      for p in worst]}
+
+
+def trajectory_line(tag, sm):
+    return (f"{tag} along the plain version's decode, every layer at steps "
+            f"{','.join(map(str, TRAJ_STEPS))} ({sm['points']} points, "
+            f"{sm['pairs']} (point, row) pairs): rows over FUSED_ROW_TOL "
+            f"{sm['rows_over']} (limit {TRAJ_ROW_SHARE:g} of the pairs), at "
+            f"{sm['points_over']} points; row err median "
+            f"{sm['median_row_err']:.3e}, max {sm['max_row_err']:.3e}; "
+            f"planted fault rows over {sm['planted_rows_over']} (must pass "
+            f"{TRAJ_PLANTED_SHARE:g} of the pairs); int8 flips nk "
+            f"{sm['nk_flips']}, nv {sm['nv_flips']}, at "
+            f"{sm['points_with_flips']} points; worst points: "
+            f"{'; '.join(sm['worst'])}")
 
 
 def phase_mha_kernels(params, dims, req, bucket):
@@ -1207,12 +1407,27 @@ def phase_mha_kernels(params, dims, req, bucket):
                              f"device: kernel {r['device_ms']:.4f} ms, plain "
                              f"{r['plain_device_ms']:.4f} ms; bound "
                              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+                if timing:
+                    line += (f"; device time with every key of the bucket "
+                             f"real {r['every_key_device_ms']:.4f} ms (on the "
+                             f"real mask {r['device_ms']:.4f} ms)")
                 log(line)
                 check(r["err"] <= CROSS_TOL * max(r["scale"], 1e-6),
                       f"{tag} disagrees")
                 out[("cross", name, form)] = r
+                # ragged rows: no real key, one, a masked key inside
+                rag = torch.where(ragged_mask(mask), -1e9, 0.0)[:, None, :] \
+                    .expand(B, H, Li).reshape(B * H, Li).contiguous()
+                rr = cross_case(q, args[0], args[1], rag, args[2], args[3],
+                                real, H, False)
+                log(f"cross_attn_decode ragged rows (0 real keys, 1, a masked "
+                    f"key inside the extent) {rr['shape']}: max_abs_err "
+                    f"{rr['err']:.3e} (scale {rr['scale']:.3e}, tol "
+                    f"{CROSS_TOL:g} of it)")
+                check(rr["err"] <= CROSS_TOL * max(rr["scale"], 1e-6),
+                      f"cross_attn_decode ragged {rr['shape']} disagrees")
+                r["ragged_err"] = rr["err"]
             del k, v, kq, vq
-
             # fused_decoder_layer at step MID_STEP, layer MID_LAYER, with
             # caches from a real run of the fused path
             dec = FusedDecode(params, memory, mask, dims, cd)
@@ -1300,6 +1515,39 @@ def phase_mha_kernels(params, dims, req, bucket):
                   f"{tag}: fused_ffn disagrees")
             check(s_err <= 1e-5, f"{tag}: nks/nvs disagree")
             check(nk_diff == 0 and nv_diff == 0, f"{tag}: nk/nv differ")
+            # ragged cross rows: no real key, one, a masked key inside
+            rag = largs[:-1] + (torch.where(ragged_mask(mask), -1e9, 0.0)
+                                .float(),)
+            rg = FD.fused_decoder_layer(*rag, **kw)
+            rf = FD.fused_decoder_layer_reference(*rag, **kw)
+            torch.cuda.synchronize()
+            rag_err = ((rg[0] - rf[0]).abs().amax(dim=1)
+                       / rf[0].abs().amax(dim=1)).max().item()
+            rag_diff = int((rg[1] != rf[1]).sum().item()
+                           + (rg[2] != rf[2]).sum().item())
+            log(f"{tag} ragged cross rows (0 real keys, 1, a masked key "
+                f"inside the extent): worst row err / row max {rag_err:.3e} "
+                f"(tol {FUSED_ROW_TOL:g}); nk/nv differ in {rag_diff}")
+            check(rag_err <= FUSED_ROW_TOL, f"{tag} ragged: x_out disagrees")
+            check(rag_diff == 0, f"{tag} ragged: nk/nv differ")
+            res["ragged_row_err"] = rag_err
+            # where the layer's device time goes, kernel by kernel
+            bd = kernel_breakdown(lambda: FD.fused_decoder_layer(*largs, **kw))
+            log(f"{tag}: kernels of one layer with its fused_ffn, device "
+                f"time per call: {breakdown_line(bd)}")
+            res["breakdown"] = [{"kernel": n, "launches": c, "us": us}
+                                for n, c, us in bd]
+            # many points, on the plain version's own trajectory
+            sm = trajectory_summary(fused_trajectory(params, memory, mask,
+                                                     dims, cd))
+            log(trajectory_line(tag.split(" t=")[0], sm))
+            check(sm["rows_over"] <= TRAJ_ROW_SHARE * sm["pairs"],
+                  f"{tag}: the kernel moves too many rows along the plain "
+                  f"decode")
+            check(sm["planted_rows_over"] > TRAJ_PLANTED_SHARE * sm["pairs"],
+                  f"{tag}: the trajectory check does not catch the planted "
+                  f"fault")
+            res["trajectory"] = {k: v for k, v in sm.items() if k != "worst"}
             out[("fused", name)] = res
             del dec, memory
         torch.cuda.empty_cache()
@@ -1501,12 +1749,25 @@ def main() -> int:
         for fn, regs, st, ld in ptxas_summary(_build.build_log):
             log(f"  ptxas: {fn}: {regs} registers, spill stores {st} B, "
                 f"spill loads {ld} B")
-        hmma = res["hmma"] = hmma_counts(_build.build())
+        per_fn = sass_counts(_build.build())
+        hmma = res["hmma"] = hmma_counts(per_fn)
         log("tensor-core sentinel, HMMA instructions in the SASS of each "
             "bf16 kernel: " + ", ".join(f"{k} {n}" for k, n in hmma.items()))
         check(all(n > 0 for n in hmma.values()),
               f"a bf16 attention kernel runs no tensor-core instruction: "
               f"{hmma}")
+        dmma = res["decode_hmma"] = least_counts(per_fn, DECODE_MMA_KERNELS,
+                                                 0)
+        acp = res["async_copies"] = least_counts(per_fn, ASYNC_KERNELS, 1)
+        log("decode kernels' sentinel, fewest over each kernel's template "
+            "instances: HMMA " + ", ".join(f"{k} {n}" for k, n in
+                                           dmma.items())
+            + "; asynchronous copies (LDGSTS/UBLKCP/UTMALDG) "
+            + ", ".join(f"{k} {n}" for k, n in acp.items()))
+        check(all(n > 0 for n in dmma.values()),
+              f"the bf16 decode GEMM runs no tensor-core instruction: {dmma}")
+        check(all(n > 0 for n in acp.values()),
+              f"a redesigned decode kernel has no asynchronous copy: {acp}")
 
     params, cfg = load_checkpoint(CKPT, device=DEVICE)
     dims = ModelDims.from_config(cfg)
@@ -1639,10 +1900,15 @@ def main() -> int:
     # keys are CUDA events around the calls, as in the entries above;
     # `device_ms` keys the kernels' own device time (torch.profiler)
     device_keys = ("device_ms", "plain_device_ms")
-    entry.update({k: cross[k] for k in ("shape",) + device_keys})
+    # skipping spans with no real key: the device time with every key
+    # real; the ragged rows' error; the sentinel's asynchronous copies
+    skip_keys = ("every_key_device_ms", "ragged_err")
+    entry.update({k: cross[k] for k in ("shape",) + device_keys + skip_keys})
     entry["bf16_kv"] = {k: cross_lib[k] for k in (
         "shape", "err", "ms", "plain_ms", "library_ms", "bound_ms",
-        "bound_by") + device_keys + ("library_device_ms",)}
+        "bound_by") + device_keys + ("library_device_ms",) + skip_keys}
+    entry["async_copies"] = {k: res["async_copies"][k]
+                             for k in ASYNC_KERNELS["cross_attn_decode"]}
     kernels.append(entry)
     src = "plankassembly_tpu_torch/csrc/fused_decode.cu"
     layer = _entry("fused_decoder_layer", src,
@@ -1651,11 +1917,23 @@ def main() -> int:
                    fused["err"], fused)
     layer.update({k: fused[k] for k in device_keys})
     layer["shape"] = f"{fused['shape']}, with its fused_ffn"
+    # the products' routes, each kernel's device time in one layer, the
+    # ragged rows' error, the check along the plain version's decode
+    layer["routes"] = dict(FUSED_ROUTES)
+    layer["hmma"] = dict(res["decode_hmma"])
+    layer["async_copies"] = {k: res["async_copies"][k]
+                             for k in ASYNC_KERNELS["fused_decoder_layer"]}
+    layer["breakdown"] = fused["breakdown"]
+    layer["breakdown_f32"] = mk[("fused", "f32")]["breakdown"]
+    layer["ragged_row_err"] = fused["ragged_row_err"]
+    layer["trajectory"] = {name: mk[("fused", name)]["trajectory"]
+                           for name in ("bf16", "f32")}
     ffn = _entry("fused_ffn", src, "plankassembly_tpu/ops/fused_decode.py:336",
                  ms[("fused", "bf16")]["fused_ffn"], fused["ffn_err"], fused,
                  prefix="ffn_")
     ffn.update(shape=fused["ffn_shape"], device_ms=fused["ffn_device_ms"],
-               plain_device_ms=fused["plain_ffn_device_ms"])
+               plain_device_ms=fused["plain_ffn_device_ms"],
+               routes=dict(FUSED_ROUTES), hmma=dict(res["decode_hmma"]))
     kernels += [layer, ffn]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -143,13 +143,13 @@ def _declare(lib):
         [P] * 10      # x, wqkv, bqkv, wos, bos, wqc, bqc, woc, boc, ln
         + [P] * 9     # k/v caches, their scales, ck, cv, cks, cvs, cbias
         + [P] * 5     # x_out, nk, nv, nks, nvs
-        + [P] * 5     # qkv, h, x_mid, gemm workspace, counters
+        + [P] * 3     # qkv, h, x_mid
         + [I64] * 7   # B, H, Dh, S, Li, CH, t
         + [F32, I32, P])  # sm_scale, is_bf16, stream
     lib.plank_fused_layer.restype = I32
     lib.plank_fused_ffn.argtypes = (
         [P] * 6       # x, w1, b1, w2, b2, ln3
-        + [P] * 4     # h, out, gemm workspace, counters
+        + [P] * 2     # h, out
         + [I64] * 3   # B, D, F
         + [I32, P])   # is_bf16, stream
     lib.plank_fused_ffn.restype = I32

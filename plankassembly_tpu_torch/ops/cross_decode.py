@@ -11,8 +11,13 @@ is float32.
 
 Layout: the TPU kernel keeps K head-major and Dh-major, (BH, Dh, Li), for
 its lane tiling. Here K and V are both (BH, Li, Dh): each key's Dh values
-are contiguous, which is what a thread that scores one key reads. The
-decode loop builds this layout once per decode.
+are contiguous, so a span of keys is one contiguous copy and a key's lanes
+read neighbouring 16-byte pieces. The decode loop builds this layout once
+per decode. Keys whose bias is at most NEG_INF / 2 count as masked: the
+kernel skips a span of them without reading its K/V when its row has a
+real key, which is exact as long as a masked key's weight is exactly 0 in
+f32 (bias 0 on real keys and NEG_INF = -1e9 on masked ones, as every
+caller gives).
 
 A CPU tensor goes to `cross_attn_decode_reference`; a CUDA tensor goes to
 the kernel in `csrc/cross_decode.cu` or raises.
@@ -88,24 +93,26 @@ def cross_attn_decode(q, k, v, bias, k_scale=None, v_scale=None, *,
     if k.dtype != v.dtype or k.dtype not in (torch.int8, q.dtype):
         raise ValueError(f"k/v must both be int8 or {q.dtype}, got "
                          f"{k.dtype}/{v.dtype}")
-    if (Dh * k.element_size()) % 16 or Dh > 256:
-        raise ValueError(f"the CUDA kernel reads a key row in 16-byte "
-                         f"pieces and takes Dh <= 256; got Dh={Dh}")
-    if (Li + Dh + 256) * 4 > 48 * 1024:
-        raise ValueError(f"the CUDA kernel keeps a row's scores in 48 KB of "
-                         f"shared memory; Li={Li} is too long")
-    ones = torch.ones((BH,), dtype=torch.float32, device=q.device)
-    ks = ones if k_scale is None else k_scale.reshape(BH).float()
-    vs = ones if v_scale is None else v_scale.reshape(BH).float()
-    ts = [t.contiguous() for t in (q, k, v, bias.float(), ks, vs)]
-    if any(t.device != q.device for t in ts):
+    pieces = Dh * k.element_size() // 16
+    if (Dh * k.element_size()) % 16 or pieces & (pieces - 1) or \
+            pieces > 32 or Dh > 128:
+        raise ValueError(f"the CUDA kernel reads a key in 16-byte pieces, "
+                         f"one lane each, a power of two of them, and takes "
+                         f"Dh <= 128; got Dh={Dh} of {k.dtype}")
+    ts = [t.contiguous() for t in (q, k, v, bias.float())]
+    # scales of None stay null pointers: the kernel takes them as 1
+    scales = [None if s is None else s.reshape(BH).float().contiguous()
+              for s in (k_scale, v_scale)]
+    if any(t.device != q.device for t in ts + [s for s in scales if
+                                               s is not None]):
         raise ValueError("every input must lie on q's device")
     out = torch.empty((BH, Dh), dtype=torch.float32, device=q.device)
     if BH == 0:
         return out
-    lib = _build.library()
-    code = lib.plank_cross_attn_decode(
-        *(t.data_ptr() for t in ts), out.data_ptr(), BH, Li, Dh,
+    code = _build.library().plank_cross_attn_decode(
+        *(t.data_ptr() for t in ts),
+        *(None if s is None else s.data_ptr() for s in scales),
+        out.data_ptr(), BH, Li, Dh,
         float(sm_scale), int(q.dtype == torch.bfloat16),
         int(k.dtype == torch.int8), _build.stream_handle(q.device))
     launches += 1

@@ -28,6 +28,10 @@ x (B, D) f32 with H heads of Dh:
 What is not part of it: the TPU kernel's block-diagonal Qbig/P_big MXU
 trick, its row blocks, lane alignment and manual DMA. Every integer sum
 here is exact, so the two versions differ only in float rounding order.
+The CUDA cross kernel also skips every chunk whose keys all have a bias at
+most NEG_INF / 2 when the row has a real key: such a chunk's weights are
+exactly 0 in f32 (bias 0 on real keys, NEG_INF = -1e9 on masked ones, as
+the decode loop gives), so it adds exactly 0 to l and o.
 
 Cache layouts (the TPU kernel's are in brackets; `tests/
 test_torch_fused_decode.py::jax_to_port_layouts` converts):
@@ -87,12 +91,46 @@ def fused_ffn_reference(x, w1, b1, w2, b2, ln3, *, cd=torch.bfloat16):
     return x + _mm(z, w2, b2, cd)
 
 
+def cross_scores(q2, ck, cks, cbias, sm_scale):
+    """Cross scores of the int8 query (quantized per (row, head)) against
+    the int8 keys: (B, H, Li) f32."""
+    qi, qs = quantize_rows(q2, (-1,))
+    return (_isum("bhd,bhld->bhl", qi, ck) * (qs * sm_scale)
+            * cks.float()[..., None] + cbias.float()[:, None, :])
+
+
+def cross_chunk(sc, m, cv, c0, CH):
+    """Chunk [c0, c0 + CH) of the cross weights exp(sc - m): its l (sum of
+    the unquantized weights) and o (their int8 product with V, times the
+    chunk's weight scale), (B, H, 1) and (B, H, Dh) f32."""
+    pc = torch.exp(sc[..., c0:c0 + CH] - m)
+    pci, pcs = quantize_rows(pc, (-1,))
+    return (pc.sum(dim=-1, keepdim=True),
+            _isum("bhj,bhdj->bhd", pci, cv[..., c0:c0 + CH]) * pcs)
+
+
+def cross_reference(q2, ck, cv, cks, cvs, cbias, sm_scale):
+    """Cross-attention of the fused layer, q2 (B, H, Dh) f32 -> (B, H, Dh)
+    f32, in two passes over chunks of CH keys: pass 1 takes every score
+    and the row max, pass 2 adds each chunk's l and o in chunk order."""
+    B, H, Li, Dh = ck.shape
+    CH = chunk_width(Li)
+    sc = cross_scores(q2, ck, cks, cbias, sm_scale)
+    m = sc.amax(dim=-1, keepdim=True)
+    l_run = torch.zeros((B, H, 1), dtype=torch.float32, device=q2.device)
+    o_run = torch.zeros((B, H, Dh), dtype=torch.float32, device=q2.device)
+    for c0 in range(0, Li, CH):
+        lc, oc = cross_chunk(sc, m, cv, c0, CH)
+        l_run = l_run + lc
+        o_run = o_run + oc
+    return o_run * (cvs.float()[..., None] / l_run)
+
+
 def _attention_reference(x, t, wqkv, bqkv, wos, bos, wqc, bqc, woc, boc, ln,
                          k_cache, v_cache, ks_cache, vs_cache, ck, cv, cks,
                          cvs, cbias, H, Dh, sm_scale, cd):
     B, D = x.shape
-    S, Li = k_cache.shape[2], ck.shape[2]
-    CH = chunk_width(Li)
+    S = k_cache.shape[2]
     dev = x.device
 
     # self-attention over the int8 cache, the new token at t in f32
@@ -116,21 +154,8 @@ def _attention_reference(x, t, wqkv, bqkv, wos, bos, wqc, bqc, woc, boc, ln,
     o = o + pt * (nv.float() * nvs)
     x = x + _mm(o.reshape(B, D), wos, bos, cd)
 
-    # cross-attention in two passes over chunks of CH keys
     q2 = _mm(_ln(x, ln, 1), wqc, bqc, cd).reshape(B, H, Dh)
-    qi, qs = quantize_rows(q2, (-1,))
-    sc = (_isum("bhd,bhld->bhl", qi, ck) * (qs * sm_scale)
-          * cks.float()[..., None] + cbias.float()[:, None, :])
-    m = sc.amax(dim=-1, keepdim=True)
-    l_run = torch.zeros((B, H, 1), dtype=torch.float32, device=dev)
-    o_run = torch.zeros((B, H, Dh), dtype=torch.float32, device=dev)
-    for c0 in range(0, Li, CH):
-        pc = torch.exp(sc[..., c0:c0 + CH] - m)
-        l_run = l_run + pc.sum(dim=-1, keepdim=True)
-        pci, pcs = quantize_rows(pc, (-1,))
-        o_run = o_run + _isum("bhj,bhdj->bhd", pci,
-                              cv[..., c0:c0 + CH]) * pcs
-    c = o_run * (cvs.float()[..., None] / l_run)
+    c = cross_reference(q2, ck, cv, cks, cvs, cbias, sm_scale)
     x = x + _mm(c.reshape(B, D), woc, boc, cd)
     return (x, nk.reshape(B, D), nv.reshape(B, D), nks.reshape(B, H),
             nvs.reshape(B, H))
@@ -188,23 +213,29 @@ def _check_device(x, cd):
         raise ValueError(f"unsupported compute dtype {cd}")
 
 
-def _check_kernel_shapes(Dh, S, Li):
-    if Dh % 4 or S % 4 or Li % 4 or Dh > 128:
-        raise ValueError(f"the CUDA kernels sum int8 products four at a time "
-                         f"and take Dh <= 128: Dh, S and Li must be "
-                         f"multiples of 4; got Dh={Dh}, S={S}, Li={Li}")
-    if (S + Li) * 4 > 40 * 1024:
-        raise ValueError(f"the CUDA kernels keep a row's scores in shared "
-                         f"memory; S={S}, Li={Li} is too long")
+def _gemm_width(n):
+    """A width the GEMMs (csrc/gemm_mma.cuh) take as K, N, and as the rows
+    of a LayerNorm in their prologue: a multiple of 128 (the norm's 128
+    threads, 8 K slices of a multiple of 16), at most 1024 (8 slices of at
+    most 128 rows)."""
+    return n % 128 == 0 and n <= 1024
 
 
-def _gemm_workspace(B, products, dev):
-    """Split-K partials for the largest (K, N) product and one counter per
-    output tile; the kernels leave the counters at zero (csrc/common.cuh)."""
-    words = max(-(-K // 64) * N for K, N in products) * B
-    tiles = max(-(-N // 64) for _, N in products) * -(-B // 32)
-    return (torch.empty((words,), dtype=torch.float32, device=dev),
-            torch.zeros((tiles,), dtype=torch.int32, device=dev))
+def _check_kernel_shapes(Dh, S, Li, D, cd):
+    CH = chunk_width(Li)
+    if Dh % 16 or CH % 16 or S % 4 or Dh > 128:
+        raise ValueError(f"the CUDA kernels copy K/V in 16-byte pieces and "
+                         f"sum int8 products four at a time: Dh and the "
+                         f"chunk width must be multiples of 16, S of 4, "
+                         f"Dh <= 128; got Dh={Dh}, CH={CH}, S={S}")
+    if S * 4 > 40 * 1024 or Li // CH > 64:
+        raise ValueError(f"the CUDA kernels keep a row's self scores in "
+                         f"shared memory and split a row's cross chunks over "
+                         f"at most 8 blocks of 8 chunks; S={S}, Li={Li} is "
+                         f"too long")
+    if not _gemm_width(D):
+        raise ValueError(f"the GEMMs normalise rows of a multiple of 128, at "
+                         f"most 1024, in their prologue; got D={D}")
 
 
 def _dev(tensor, dtype, dev):
@@ -224,6 +255,9 @@ def fused_ffn(x, w1, b1, w2, b2, ln3, *, cd=torch.bfloat16):
             tuple(ln3.shape) != (2, D):
         raise ValueError("fused_ffn: w1 (D, F), w2 (F, D), ln3 (2, D)")
     _check_device(x, cd)
+    if not (_gemm_width(D) and _gemm_width(F)):
+        raise ValueError(f"the GEMMs take D and F multiples of 128, at most "
+                         f"1024; got D={D}, F={F}")
     dev = x.device
     ts = [_dev(x, torch.float32, dev), _dev(w1, cd, dev),
           _dev(b1, torch.float32, dev), _dev(w2, cd, dev),
@@ -231,11 +265,9 @@ def fused_ffn(x, w1, b1, w2, b2, ln3, *, cd=torch.bfloat16):
     out = torch.empty((B, D), dtype=torch.float32, device=dev)
     if B == 0:
         return out
-    h = torch.empty((B, D + F), dtype=cd, device=dev)
-    ws, counters = _gemm_workspace(B, [(D, F), (F, D)], dev)
+    h = torch.empty((B, F), dtype=cd, device=dev)
     code = _build.library().plank_fused_ffn(
-        *(t.data_ptr() for t in ts), h.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), counters.data_ptr(), B, D, F,
+        *(t.data_ptr() for t in ts), h.data_ptr(), out.data_ptr(), B, D, F,
         int(cd == torch.bfloat16), _build.stream_handle(dev))
     ffn_launches += 1
     _build.check(code, "plank_fused_ffn")
@@ -265,7 +297,7 @@ def fused_decoder_layer(x, t, wqkv, bqkv, wos, bos, wqc, bqc, woc, boc,
     B, D = x.shape
     S, Li = k_cache.shape[2], ck.shape[2]
     _check_device(x, cd)
-    _check_kernel_shapes(Dh, S, Li)
+    _check_kernel_shapes(Dh, S, Li, D, cd)
     dev = x.device
     f32 = torch.float32
     ins = [_dev(x, f32, dev), _dev(wqkv, cd, dev), _dev(bqkv, f32, dev),
@@ -288,12 +320,11 @@ def fused_decoder_layer(x, t, wqkv, bqkv, wos, bos, wqc, bqc, woc, boc,
     qkv = torch.empty((B, 3 * D), dtype=f32, device=dev)
     h = torch.empty((B, D), dtype=cd, device=dev)
     x_mid = torch.empty((B, D), dtype=f32, device=dev)
-    ws, counters = _gemm_workspace(B, [(D, 3 * D), (D, D)], dev)
     code = _build.library().plank_fused_layer(
         *(t_.data_ptr() for t_ in ins + caches),
         x_att.data_ptr(), nk.data_ptr(), nv.data_ptr(), nks.data_ptr(),
         nvs.data_ptr(), qkv.data_ptr(), h.data_ptr(), x_mid.data_ptr(),
-        ws.data_ptr(), counters.data_ptr(), B, H, Dh, S, Li, chunk_width(Li),
+        B, H, Dh, S, Li, chunk_width(Li),
         int(t), float(sm_scale), int(cd == torch.bfloat16),
         _build.stream_handle(dev))
     layer_launches += 1
