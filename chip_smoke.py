@@ -21,8 +21,17 @@ instead of hanging, each printing one line (or a few) when it ends:
    scaled_dot_product_attention times (the last a yardstick only), and
    the f32 kernel's time;
 3. the decode kernels against their plain version on the flagship
-   checkpoint and the fixture's encoder memory, in bf16: token agreement,
-   F1 of each, time per step;
+   checkpoint and the fixture's encoder memory (the 32-program request),
+   in bf16: token agreement, F1 of each, num_steps, time per step; again
+   without early exit (all S steps) and on a ragged mask (a row with no
+   real key, one with only key 0, a masked key inside a row; those three
+   rows held on their own: their tokens against the unaltered rows', their
+   attach, their hidden states); the time of the call's cross K/V
+   preparation alone, the graph's kernels a step, its capture and
+   instantiate ms and its replays' ms, the device idle share over the call,
+   one step's kernels by device time, the loop with every bf16 product
+   in the SIMT order (time, token agreement) and the loop without
+   programmatic dependent launch (time, equal samples);
 4. the main path: load checkpoints/gqa_complete_ep221.npz, pack the 64
    fixture drawings, serve them through make_live_backend + BatchingServer
    as requests of 8, 24 and 32 programs, and score P/R/F1 against the
@@ -111,6 +120,13 @@ PHASES = tuple(BUDGET)
 # kernels' exp and summation order differ)
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 DECODE_F1_TOL = 0.005          # kernel vs plain, bf16, same memory
+# decode on a ragged mask: the rows `ragged_mask` changes (no real key,
+# only key 0, a masked key inside) against the plain version, their hidden
+# states within this factor of the error of rows it leaves (bf16 products
+# rounded in another order, ~3e-2 there); a row whose cross-attention
+# read the wrong keys is off by O(1)
+RAGGED_ROWS = 3
+RAGGED_HIDDEN_FACTOR = 2.0
 SERVE_F1_TOL = {"bf16": 0.01, "f32": 0.002}  # port vs the JAX golden
 REQUESTS = (8, 24, 32)         # programs per request on the main path
 # fused_attention_train through its autograd wrapper against the plain
@@ -325,7 +341,8 @@ FUSED_ROUTES = {"bf16": "cuda-mma (woc, w1, w2), cuda-simt-order (qkv, wo, "
 # them that run on the tensor cores: the bf16 GEMM of the fused layer, a
 # template with one function per route, prologue and epilogue, whose
 # tensor-core instances mangle as cluster_gemm_kernel<true, ...>
-ASYNC_KERNELS = {"cross_attn_decode": ("cross_attn_cluster_kernel",),
+ASYNC_KERNELS = {"persistent_greedy_decode": ("cross_attn_kernel",),
+                 "cross_attn_decode": ("cross_attn_cluster_kernel",),
                  "fused_decoder_layer": ("fused_cross_split_kernel",
                                          "cluster_gemm_kernel")}
 DECODE_MMA_KERNELS = {"fused_decoder_layer": ("cluster_gemm_kernelILb1E",)}
@@ -544,6 +561,37 @@ def _leaves(tree):
         yield tree
 
 
+# the redesigned decode loop's kernels (csrc/decode.cu), for the breakdown
+DECODE_KERNELS = ("cluster_gemm_kernel", "self_attn_kernel",
+                  "cross_attn_kernel", "final_norm_kernel", "pointer_kernel",
+                  "sample_kernel")
+
+
+def decode_idle_share(fn):
+    """(device idle share of one fn() call's wall time, busy ms, wall ms)
+    under torch.profiler: 1 - (the union of its kernels' and copies'
+    device intervals) / (host clock from the call to its synchronise). The
+    union, not the sum: with programmatic dependent launch a kernel starts
+    before the previous one ends."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    busy /= 1e3
+    check(busy > 0, "decode: the profiler saw no device time")
+    return 1 - busy / wall, busy, wall
+
+
 def phase_decode(params, dims, batch, gt, bucket):
     from plankassembly_tpu_torch.decode import _pad_or_crop
     from plankassembly_tpu_torch.metrics import batch_scores
@@ -551,19 +599,22 @@ def phase_decode(params, dims, batch, gt, bucket):
     from plankassembly_tpu_torch.ops import persistent_decode as PD
 
     cd = torch.bfloat16
+    S = dims.max_output_length
     inputs = _pad_or_crop({k: v for k, v in batch.items()}, bucket, dims)
     with torch.no_grad():
         memory = encode(params, inputs, dims, compute_dtype=cd, flash=True)
     mask = inputs["input_mask"]
     B, Li = memory.shape[:2]
 
-    def kern():
-        return PD.persistent_greedy_decode(params, memory, mask, dims,
-                                           compute_dtype=cd)
+    def kern(early_exit=True, m=mask):
+        return PD.persistent_greedy_decode(params, memory, m, dims,
+                                           compute_dtype=cd,
+                                           early_exit=early_exit)
 
-    def plain():
-        return PD.greedy_decode_reference(params, memory, mask, dims,
-                                          compute_dtype=cd)
+    def plain(early_exit=True, m=mask):
+        return PD.greedy_decode_reference(params, memory, m, dims,
+                                          compute_dtype=cd,
+                                          early_exit=early_exit)
 
     k_out, p_out = kern(), plain()
     torch.cuda.synchronize()
@@ -576,8 +627,39 @@ def phase_decode(params, dims, batch, gt, bucket):
     attach_same = bool((k_out["attach"][sel] == p_out["attach"][sel]).all())
     hid_err = (k_out["hidden"][sel, :steps]
                - p_out["hidden"][sel, :steps]).abs().max().item()
+    hid_tail_zero = not k_out["hidden"][:, k_out["num_steps"]:].any().item()
     f1_k = batch_scores(ks, gt)[2].mean().item()
     f1_p = batch_scores(ps, gt)[2].mean().item()
+    # every step (no early exit): the kernel against the plain version
+    # run the same way
+    k_all, p_all = kern(False), plain(False)
+    agree_all = (k_all["samples"] == p_all["samples"]).float().mean().item()
+    # any mask: a row with no real key, one with only key 0, a masked key
+    # inside a row (csrc/decode.cu's cross kernel skips spans by the mask)
+    rag = ragged_mask(mask)
+    k_rag, p_rag = kern(False, rag), plain(False, rag)
+    rag_same = (k_rag["samples"] == p_rag["samples"]).cpu()
+    agree_rag = rag_same.float().mean().item()
+    # the three changed rows held on their own against the unaltered rows
+    # of the same run: their token agreement, and on those of them with
+    # identical tokens, attach and the hidden states of all S steps
+    changed = torch.arange(B) < RAGGED_ROWS
+    agree_rag_rows = rag_same[changed].float().mean().item()
+    agree_rag_rest = rag_same[~changed].float().mean().item()
+    ident = rag_same.all(dim=1)
+
+    def rag_hidden_err(rows):
+        rows = rows.to(DEVICE)
+        if not rows.any():
+            return 0.0
+        return (k_rag["hidden"][rows] - p_rag["hidden"][rows]).abs().max() \
+            .item()
+
+    rag_hid_rows = rag_hidden_err(ident & changed)
+    rag_hid_rest = rag_hidden_err(ident & ~changed)
+    rows_dev = (ident & changed).to(DEVICE)
+    rag_attach_same = bool((k_rag["attach"][rows_dev]
+                            == p_rag["attach"][rows_dev]).all())
 
     def timed(fn, reps):
         fn()
@@ -588,24 +670,109 @@ def phase_decode(params, dims, batch, gt, bucket):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / reps * 1e3, out["num_steps"]
 
+    def prepare():
+        return PD._prepare(params, memory, mask, dims, cd, True)
+
     k_ms, k_steps = timed(kern, 3)
+    graph = dict(PD.last_graph)  # of a call after the first: its replays'
+    # ms are CUDA events around them, inside the call
+    prep_ms, _ = timed(lambda: {"num_steps": len(prepare())}, 3)
     p_ms, p_steps = timed(plain, 2)
+    # launches after the previous kernel's end (no programmatic dependent
+    # launch): what the overlap gains
+    with _patched(PD, PDL=False):
+        nopdl_out = kern()
+        nopdl_same = bool((nopdl_out["samples"] == k_out["samples"]).all())
+        nopdl_ms, _ = timed(kern, 3)
+    # the rule's comparison (PERF.md): every bf16 product in the SIMT order
+    with _patched(PD, SIMT_ORDER=True):
+        simt_out = kern()
+        agree_simt = (simt_out["samples"].cpu() == ps).float().mean().item()
+        simt_ms, _ = timed(kern, 3)
     bound_ms, bound_by = decode_bound(dims, params, memory, mask,
                                        k_steps, cd)
+    idle, busy_ms, wall_ms = decode_idle_share(kern)
+    # one step's kernels: a decode of every step, its loop kernels' device
+    # time over S (the cross K/V preparation's kernels apart); without the
+    # overlap of programmatic dependent launch, in which a kernel's time
+    # would include its wait for the previous one
+    with _patched(PD, PDL=False):
+        rows = kernel_breakdown(lambda: kern(False), reps=3, warmup=1)
+    step_rows = [(n, c / S, us / S) for n, c, us in rows
+                 if any(k in n for k in DECODE_KERNELS)]
+    prep_us = sum(us for n, _, us in rows
+                  if not any(k in n for k in DECODE_KERNELS))
     log(f"decode B={B} Li={Li} bf16: token agreement {agree:.4f}, identical "
         f"rows {same.float().mean().item():.3f}, hidden max_abs_err on "
         f"identical rows {hid_err:.3e}, attach equal on identical rows "
-        f"{attach_same}; F1 kernel {f1_k:.6f} plain {f1_p:.6f}; kernel {k_ms:.2f} ms ({k_steps} steps, "
-        f"{k_ms / k_steps:.3f} ms/step), plain {p_ms:.2f} ms ({p_steps} "
-        f"steps, {p_ms / p_steps:.3f} ms/step); bound {bound_ms:.4f} ms "
-        f"({bound_by})")
+        f"{attach_same}, num_steps kernel {k_out['num_steps']} plain "
+        f"{p_out['num_steps']}, hidden zero after num_steps {hid_tail_zero}; "
+        f"F1 kernel {f1_k:.6f} plain {f1_p:.6f}; every step (no early "
+        f"exit): steps kernel {k_all['num_steps']} plain "
+        f"{p_all['num_steps']}, token agreement {agree_all:.4f}; ragged "
+        f"mask, every step: agreement {agree_rag:.4f}, on the {RAGGED_ROWS} "
+        f"changed rows {agree_rag_rows:.4f} (the others {agree_rag_rest:.4f}), "
+        f"their attach equal {rag_attach_same}, their hidden max_abs_err "
+        f"{rag_hid_rows:.3e} (the others {rag_hid_rest:.3e}); kernel "
+        f"{k_ms:.2f} ms ({k_steps} steps, {k_ms / k_steps:.3f} ms/step, its "
+        f"graph's replays {graph['replay_ms']:.2f} ms, the call's "
+        f"cross K/V preparation alone {prep_ms:.2f} ms), plain {p_ms:.2f} ms "
+        f"({p_steps} steps, {p_ms / p_steps:.3f} ms/step); bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
+    log(f"  graph: {graph['nodes_per_step']:g} kernels a step, "
+        f"{PD.CHECK_EVERY} steps a graph, {graph['replays']} replays, "
+        f"capture {graph['capture_ms']:.2f} ms, instantiate "
+        f"{graph['instantiate_ms']:.2f} ms; device idle share over the call "
+        f"{idle:.3f} (busy {busy_ms:.2f} of {wall_ms:.2f} ms, profiled); "
+        f"every bf16 product in the SIMT order: {simt_ms:.2f} ms, token "
+        f"agreement with the plain version {agree_simt:.4f}; without "
+        f"programmatic dependent launch: {nopdl_ms:.2f} ms, samples equal "
+        f"{nopdl_same}")
+    log(f"  one step's kernels (without programmatic dependent launch; "
+        f"device time over {S} steps; the call's "
+        f"other kernels {prep_us / 1e3:.3f} ms): " + breakdown_line(step_rows))
     check(abs(f1_k - f1_p) <= DECODE_F1_TOL,
           f"decode F1 kernel {f1_k} vs plain {f1_p}")
     check(agree >= 0.9, f"decode token agreement {agree}")
     check(attach_same, "decode: attach differs from the plain version on "
           "rows with identical tokens")
+    check(k_out["num_steps"] == p_out["num_steps"],
+          f"decode num_steps {k_out['num_steps']} vs plain "
+          f"{p_out['num_steps']}")
+    check(hid_tail_zero, "decode: hidden columns after num_steps not zero")
+    check(k_all["num_steps"] == S and p_all["num_steps"] == S,
+          f"decode without early exit ran {k_all['num_steps']} steps")
+    check(agree_all >= 0.9, f"decode token agreement, every step {agree_all}")
+    check(agree_rag >= 0.9, f"decode token agreement, ragged mask "
+          f"{agree_rag}")
+    check(agree_rag_rows >= agree_rag_rest,
+          f"decode on the ragged mask: the changed rows agree "
+          f"{agree_rag_rows}, the others {agree_rag_rest}")
+    check(rag_attach_same, "decode on the ragged mask: attach differs on "
+          "changed rows with identical tokens")
+    hid_ref = max(hid_err, rag_hid_rest)
+    check(rag_hid_rows <= RAGGED_HIDDEN_FACTOR * hid_ref,
+          f"decode on the ragged mask: hidden error of the changed rows "
+          f"{rag_hid_rows} against {hid_ref} elsewhere")
+    check(k_rag["num_steps"] == S, "decode on the ragged mask: steps")
+    check(nopdl_same, "decode: samples differ without programmatic "
+          "dependent launch")
     return {"err": hid_err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by, "steps": k_steps,
+            "ms_per_step": k_ms / k_steps, "prepare_ms": prep_ms,
+            "replay_ms": graph["replay_ms"],
+            "token_agreement": agree, "token_agreement_all_steps": agree_all,
+            "token_agreement_ragged": agree_rag,
+            "token_agreement_ragged_changed_rows": agree_rag_rows,
+            "hidden_err_ragged_changed_rows": rag_hid_rows,
+            "kernels_per_step": graph["nodes_per_step"],
+            "capture_ms": graph["capture_ms"],
+            "instantiate_ms": graph["instantiate_ms"],
+            "idle_share": idle,
+            "kernel_breakdown": [{"kernel": n, "launches": c, "us": us}
+                                 for n, c, us in step_rows],
+            "ms_simt_order": simt_ms, "ms_without_pdl": nopdl_ms,
+            "token_agreement_simt_order": agree_simt}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1875,15 +2042,27 @@ def main() -> int:
     for entry in (flash_entry, fwd, bwd):
         entry["routes"] = dict(ROUTES)
         entry["hmma"] = {k: res["hmma"][k] for k in MMA_KERNELS[entry["name"]]}
+    decode_entry = {
+        "name": "persistent_greedy_decode", "route": "cuda",
+        "source": "plankassembly_tpu_torch/csrc/decode.cu",
+        "replaces": "plankassembly_tpu/ops/persistent_decode.py:632",
+        "launches": serve["bf16"]["persistent_greedy_decode"],
+        "max_abs_err": decode["err"], "ms": decode["ms"],
+        "plain_ms": decode["plain_ms"], "bound_ms": decode["bound_ms"],
+        "bound_by": decode["bound_by"], "library_ms": None}
+    # the graph loop: steps, ms a step, the cross K/V preparation apart,
+    # kernels (graph nodes) a step, capture and instantiate ms, idle share,
+    # one step's kernels, the agreements, the SIMT-order variant
+    decode_entry.update({k: v for k, v in decode.items() if k not in (
+        "err", "ms", "plain_ms", "bound_ms", "bound_by")})
+    decode_entry["shape"] = "B=32 Li=1152 bf16, ep221"
+    decode_entry["routes"] = {"bf16": "cuda-mma", "f32": "cuda-simt-order"}
+    decode_entry["async_copies"] = {
+        k: res["async_copies"][k]
+        for k in ASYNC_KERNELS["persistent_greedy_decode"]}
     kernels = [
         flash_entry,
-        {"name": "persistent_greedy_decode", "route": "cuda",
-         "source": "plankassembly_tpu_torch/csrc/decode.cu",
-         "replaces": "plankassembly_tpu/ops/persistent_decode.py:632",
-         "launches": serve["bf16"]["persistent_greedy_decode"],
-         "max_abs_err": decode["err"], "ms": decode["ms"],
-         "plain_ms": decode["plain_ms"], "bound_ms": decode["bound_ms"],
-         "bound_by": decode["bound_by"], "library_ms": None},
+        decode_entry,
         fwd, bwd,
     ]
     mk, ms = res["mha_kernels"], res["mha_serve"]

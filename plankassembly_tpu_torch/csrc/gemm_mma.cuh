@@ -1,8 +1,8 @@
-// Split-K GEMM over a thread-block cluster for the products of the fused
-// decode layer (csrc/fused_decode.cu), on the tensor cores or in the SIMT
-// GEMM's order: out = epi(m, n, A (M x K) . W (K x N)), A and W in T (bf16
-// or f32), f32 accumulation, optionally with A = LayerNorm(x) computed in
-// the cluster from f32 x.
+// Split-K GEMM over a thread-block cluster for the products of the decode
+// loop (csrc/decode.cu) and the fused decode layer (csrc/fused_decode.cu),
+// on the tensor cores or in the SIMT GEMM's order: out = epi(m, n, A (M x
+// K) . W (K x N)), A and W in T (bf16 or f32), f32 accumulation,
+// optionally with A = LayerNorm(x) computed in the cluster from f32 x.
 //
 // Replaces, in part: the products inside plankassembly_tpu/ops/
 // fused_decode.py::fused_decoder_layer (`_kernel`) and fused_ffn
@@ -23,7 +23,7 @@
 //   one slice a block, so a ring of stages would hold nothing more.
 // - The LayerNorm prologue (K = D, 8 ranks): while the W copy is in
 //   flight, rank z computes the mean and 1 / std of 4 of the tile's 32
-//   rows of x in layernorm_kernel's exact order of f32 operations and
+//   rows of x in the row layer norm's exact order of f32 operations and
 //   shares them through distributed shared memory; each rank then rounds
 //   its own slice of the normalised rows to T into shared memory. This
 //   takes the separate LayerNorm launch and its round trip out, reads each
@@ -37,10 +37,10 @@
 //   order moves.
 // - In the SIMT GEMM's order (kTC false; every f32 product, and the bf16
 //   products that csrc/fused_decode.cu keeps in that order, and says
-//   why): the arithmetic of common.cuh's split-K GEMM, f32 fused
-//   multiply-adds from 0 in k order over slices of 64, the slices added
-//   in order. A rank takes one slice, or two when K / 64 passes the 8
-//   ranks of a cluster, each with its own partial.
+//   why): the arithmetic of the split-K SIMT GEMM the decode loops used
+//   first, f32 fused multiply-adds from 0 in k order over slices of 64,
+//   the slices added in order. A rank takes one slice, or two when K / 64
+//   passes the 8 ranks of a cluster, each with its own partial.
 // - Split-K through the cluster: each rank leaves its partial tile(s) in
 //   its shared memory; after a cluster barrier, rank z adds its 32 / S
 //   rows of the ranks' partials in rank (slice) order (deterministic) and
@@ -51,6 +51,7 @@
 
 #include <initializer_list>
 #include <type_traits>
+#include <utility>
 
 #include "attn_mma.cuh"
 
@@ -89,11 +90,24 @@ __device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
   f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
 }
 
-constexpr int kSimtSlice = 64;  // common.cuh's kKSlice
+constexpr int kSimtSlice = 64;  // K rows of a slice in the SIMT order
 
 // sub-slices of 64 a rank adds on the SIMT route (one partial each)
 template <bool kTC>
 constexpr int kParts = kTC ? 1 : 2;
+
+// An epilogue with a member `halt` (a device int) is the decode loop's
+// (csrc/decode.cu): the kernel issues its weights' copies (which no
+// earlier kernel writes), then waits for the previous kernel of the stream
+// (a programmatic dependent launch; a no-op for a launch that did not
+// allow the overlap), lets the next one start, and stops at once while
+// *halt is set (every block of a cluster reads the same value). Other
+// epilogues compile to the kernel without any of this.
+template <typename Epi, typename = void>
+struct Halts : std::false_type {};
+template <typename Epi>
+struct Halts<Epi, std::void_t<decltype(std::declval<Epi&>().halt)>>
+    : std::true_type {};
 
 template <bool kTC, typename T, bool LN, typename Epi>
 __global__ void __launch_bounds__(kThreads)
@@ -118,6 +132,15 @@ __global__ void __launch_bounds__(kThreads)
     attn::cp_async16(&Bs[kk][c * E], W + (long long)(k0 + kk) * N + n0 + c * E,
                      16);
   }
+  if constexpr (Halts<Epi>::value) {
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+    asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+    if (*epi.halt) {
+      attn::cp_async_commit();
+      attn::cp_async_wait<0>();  // no copy outlives the block
+      return;
+    }
+  }
   if constexpr (!LN) {
     const int pr = KS / E;
     for (int i = tid; i < kBM * pr; i += kThreads) {
@@ -130,12 +153,13 @@ __global__ void __launch_bounds__(kThreads)
   }
   attn::cp_async_commit();
   if constexpr (LN) {
-    // LayerNorm in layernorm_kernel's own arithmetic, so that the rounding
-    // to bf16 sees the same f32 values (a value that lands on the other
-    // side of a bf16 rounding point moves the layer's output by ~1e-4 of
-    // a row). That kernel gives a row 128 threads: thread t adds x[t],
-    // x[t + 128], ... from 0, a warp adds its 32 by the xor butterfly, and
-    // the 4 warps' sums are added in order. Here rank z computes rows
+    // LayerNorm in the row layer norm's own arithmetic (decode.cu's
+    // final_norm_kernel), so that the rounding to bf16 sees the same f32
+    // values (a value that lands on the other side of a bf16 rounding
+    // point moves the layer's output by ~1e-4 of a row). That kernel gives
+    // a row 128 threads: thread t adds x[t], x[t + 128], ... from 0, a
+    // warp adds its 32 by the xor butterfly, and the 4 warps' sums are
+    // added in order. Here rank z computes rows
     // [Rz, Rz + R), R = 32 / S: warp w rows Rz + w, Rz + w + 4, ..., 8
     // lanes per emulated warp qt, lane u holding its threads t = 32 qt + u
     // + 8i, i < 4 (the butterfly's first two levels inside the lane, the
@@ -229,7 +253,7 @@ __global__ void __launch_bounds__(kThreads)
         part[0][16 * mt + (lane >> 2) + (i >> 1) * 8]
             [16 * nh + 8 * j + (lane & 3) * 2 + (i & 1)] = acc[j][i];
   } else {
-    // common.cuh's SIMT GEMM's arithmetic: each output's products added
+    // the SIMT GEMM's arithmetic: each output's products added
     // by fused multiply-adds from 0 in k order over each slice of 64
     const int rr = tid >> 2, c0 = (tid & 3) * 8;
     for (int sl = 0; sl < KS / kSimtSlice; ++sl) {
@@ -252,16 +276,26 @@ __global__ void __launch_bounds__(kThreads)
   cluster.sync();
 
   // rank z sums rows [z * 32 / S, (z + 1) * 32 / S) of the tile over the
-  // ranks' partials, in rank (slice) order, and applies the epilogue
+  // ranks' partials, in rank (slice) order, and applies the epilogue; the
+  // partials are read first, all at once, then added
+  constexpr int kMaxRanks = 8;
   const int rows = kBM / S, parts = kTC ? 1 : KS / kSimtSlice;
   for (int i = tid; i < rows * kBN; i += kThreads) {
     const int r = z * rows + i / kBN, c = i % kBN;
+    float v[kMaxRanks][kParts<kTC>];
+#pragma unroll
+    for (int q = 0; q < kMaxRanks; ++q)
+#pragma unroll
+      for (int sl = 0; sl < kParts<kTC>; ++sl)
+        if (q < S && sl < parts)
+          v[q][sl] = cluster.map_shared_rank(&part[0][0][0], q)
+                         [(sl * kBM + r) * (kBN + 1) + c];
     float sum = 0.f;
-    for (int q = 0; q < S; ++q) {
-      const float* pq = cluster.map_shared_rank(&part[0][0][0], q);
-      for (int sl = 0; sl < parts; ++sl)
-        sum += pq[(sl * kBM + r) * (kBN + 1) + c];
-    }
+#pragma unroll
+    for (int q = 0; q < kMaxRanks; ++q)
+#pragma unroll
+      for (int sl = 0; sl < kParts<kTC>; ++sl)
+        if (q < S && sl < parts) sum += v[q][sl];
     if (m0 + r < M) epi(m0 + r, n0 + c, sum);
   }
   cluster.sync();  // the partials stay until every rank has read them
@@ -287,23 +321,28 @@ static int simt_slices(int K) {
 // blocks of one output tile; N a multiple of 32. On the tensor cores (kTC)
 // S = k_slices(K); in the SIMT GEMM's order S = simt_slices(K), so that
 // the slices and their order are that GEMM's. With LN (A ignored), K a
-// multiple of 128.
+// multiple of 128. `pdl`: allow the launch to overlap the previous
+// kernel's end (programmatic dependent launch; the decode loop's
+// epilogues wait for it in the kernel).
 template <bool kTC, typename T, bool LN, typename Epi>
 static int cluster_gemm(const void* A, long long lda, LnArgs ln, const void* W,
-                        int M, int N, int K, Epi epi, cudaStream_t s) {
+                        int M, int N, int K, Epi epi, cudaStream_t s,
+                        bool pdl = false) {
   const int S = kTC ? k_slices(K) : simt_slices(K);
   if (S == 0 || N % kBN || (LN && K % 128)) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(N / kBN, (M + kBM - 1) / kBM, S);
   cfg.blockDim = dim3(kThreads);
   cfg.stream = s;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = S;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = pdl ? 2 : 1;
   return (int)cudaLaunchKernelEx(&cfg, cluster_gemm_kernel<kTC, T, LN, Epi>,
                                  static_cast<const T*>(A), lda, ln,
                                  static_cast<const T*>(W), M, N, K, epi);

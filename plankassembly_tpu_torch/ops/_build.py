@@ -113,10 +113,8 @@ def _declare(lib):
         I64, I64, I64, I64, I64, I64,  # B, H, Hkv, Lq, Lk, Dh
         F32, I32, I32, P]              # sm_scale, causal, is_bf16, stream
     lib.plank_flash_attention.restype = I32
-    lib.plank_decode_step.argtypes = [P, I64, P]  # args struct, t, stream
-    lib.plank_decode_step.restype = I32
-    lib.plank_decode_setup.argtypes = [P]
-    lib.plank_decode_setup.restype = I32
+    lib.plank_decode_run.argtypes = [P, I64, P, P]  # args struct, steps a
+    lib.plank_decode_run.restype = I32             # graph, stream, stats
     lib.plank_flash_train_fwd.argtypes = [
         P, P, P, P, P, P, P,                # q, k, v, kv_len, seed, out,
                                             # stats

@@ -2,11 +2,14 @@
 that replaces the Pallas `plankassembly_tpu/ops/persistent_decode.py::
 persistent_greedy_decode`, and its plain PyTorch version.
 
-The TPU kernel runs all S steps in one launch. Here the loop over steps
-runs on the host: each step is one ctypes call into `csrc/decode.cu`,
-which launches that step's simple kernels (see the note there); no kernel
-waits on another block. Early exit is a device flag that the step's
-kernels check, read by the host every `CHECK_EVERY` steps, so the result
+The TPU kernel runs all S steps in one launch. Here one ctypes call into
+`csrc/decode.cu` runs the whole loop: it captures `CHECK_EVERY`
+consecutive steps of simple kernels (about 8 a layer) once as a CUDA
+graph and replays it until the device's halt flag is set (see the note
+there); no kernel waits on a block outside its own cluster. The step
+number lives in device memory, so every replay continues where the last
+one stopped. Early exit is that halt flag, which every kernel checks and
+the host reads after each replay while the next one runs, so the result
 (tokens, trailing tokens of rows that finished earlier, `num_steps`)
 equals the JAX while_loop's.
 
@@ -34,8 +37,20 @@ from plankassembly_tpu_torch.ops.cross_decode import quantize_rows
 
 # calls that ran the CUDA decode (one per decode of a batch)
 launches = 0
-# steps between two host reads of the device's all-done flag
+# steps in the captured graph: between two host reads of the halt flag
 CHECK_EVERY = 8
+# bf16 products run on the tensor cores (mma.sync); True runs them in the
+# SIMT GEMM's order of f32 sums instead, as every f32 product runs (for
+# comparison)
+SIMT_ORDER = False
+# each kernel of the loop may start while the previous one ends
+# (programmatic dependent launch): its prologue and launch overlap the
+# previous kernel's tail
+PDL = True
+# the graph of the last CUDA call: capture and instantiate ms (host
+# clock, inside the call), kernels a step, replays, and the replays' ms
+# (CUDA events around them, inside the call)
+last_graph: dict = {}
 
 
 def _layers(tree, L):
@@ -147,18 +162,15 @@ def greedy_decode_reference(params, memory, memory_mask, dims: ModelDims, *,
 # ---------------------------------------------------------------------------
 
 _INT_FIELDS = ("B", "S", "D", "H", "kvH", "Dh", "F", "V", "L", "Li", "dof",
-               "end_token", "is_bf16", "early_exit")
+               "end_token", "is_bf16", "early_exit", "simt_order", "pdl")
 _PTR_FIELDS = ("wqkv", "bqkv", "wo", "bo", "cwq", "cbq", "cwo", "cbo", "w1",
                "b1", "w2", "b2", "ln", "final_ln", "head_w", "head_b",
                "emb_value", "emb_coord", "emb_pos", "struct_mask", "ck", "cv",
                "ck_scale", "cv_scale", "mem_mask", "k_cache", "v_cache",
-               "h_cache", "x", "h", "qkv", "att", "q2", "z", "head_out",
-               "gemm_ws", "gemm_counters", "attn_ws", "attn_counters",
-               "output", "attach", "done", "halt", "num_steps")
-# K rows per split of the decode GEMMs, and keys per split of
-# cross-attention (kKSlice and kKeyChunk in csrc/decode.cu)
-_K_SLICE = 64
-_KEY_CHUNK = 256
+               "h_cache", "x", "hf", "q", "att", "q2", "z", "head_out", "ptr",
+               "output", "attach", "done", "halt", "num_steps", "counter")
+# the head's columns are padded to the cluster GEMM's tile width
+_HEAD_TILE = 32
 
 
 class DecodeArgs(ctypes.Structure):
@@ -168,13 +180,10 @@ class DecodeArgs(ctypes.Structure):
                 + [(n, ctypes.c_void_p) for n in _PTR_FIELDS])
 
 
-def _splits(K):
-    return -(-K // _K_SLICE)
-
-
 def _prepare(params, memory, memory_mask, dims: ModelDims, cd, early_exit):
     """Device tensors for the kernels: packed weights, int8 cross K/V,
-    state and scratch. Returns (dict of tensors, ints for DecodeArgs)."""
+    state at step 0 and scratch. Returns (dict of tensors, ints for
+    DecodeArgs)."""
     from plankassembly_tpu_torch.decode import (
         precompute_cross_kv,
     )
@@ -187,20 +196,20 @@ def _prepare(params, memory, memory_mask, dims: ModelDims, cd, early_exit):
                    dims.head_dim)
     kvH, L, F, V = (dims.kv_heads, dims.num_decoder_layers,
                     dims.num_feedforward, dims.vocab_size)
-    Dkv = kvH * Dh
+    Dkv, NH = kvH * Dh, V + D + 1
     dec, heads, emb = params["decoder"], params["heads"], params["embed"]
     sa, ca, ffn = dec["self_attn"], dec["cross_attn"], dec["ffn"]
 
     cross_k, cross_v = precompute_cross_kv(params, memory, dims, cd)
     ck_q, ck_s = quantize_rows(cross_k, (2, 4))
     cv_q, cv_s = quantize_rows(cross_v, (2, 4))
-    # (K, N) of every product of a step: qkv, wo, cross q, cross wo, w1,
-    # w2, heads
-    products = [(D, D + 2 * Dkv), (D, D), (D, F), (F, D), (D, V + D + 1)]
 
     def c(t, dtype):
         return t.to(device=dev, dtype=dtype).contiguous()
 
+    head_w = torch.cat([heads["vocab"]["w"], heads["pointer"]["w"],
+                        heads["switch"]["w"]], dim=1)
+    head_w = torch.nn.functional.pad(head_w, (0, -NH % _HEAD_TILE))
     ts = {
         "wqkv": c(torch.cat([sa["wq"], sa["wk"], sa["wv"]], dim=2), cd),
         "bqkv": c(torch.cat([sa["bq"], sa["bk"], sa["bv"]], dim=1), cd),
@@ -213,8 +222,7 @@ def _prepare(params, memory, memory_mask, dims: ModelDims, cd, early_exit):
                              for k in ("scale", "bias")], dim=1), f32),
         "final_ln": c(torch.stack([dec["final_norm"]["scale"],
                                    dec["final_norm"]["bias"]]), f32),
-        "head_w": c(torch.cat([heads["vocab"]["w"], heads["pointer"]["w"],
-                               heads["switch"]["w"]], dim=1), f32),
+        "head_w": c(head_w, f32),
         "head_b": c(torch.cat([heads["vocab"]["b"], heads["pointer"]["b"],
                                heads["switch"]["b"]]), f32),
         "emb_value": c(emb["value"], f32),
@@ -229,36 +237,25 @@ def _prepare(params, memory, memory_mask, dims: ModelDims, cd, early_exit):
         "k_cache": torch.zeros((L, B, S, Dkv), dtype=cd, device=dev),
         "v_cache": torch.zeros((L, B, S, Dkv), dtype=cd, device=dev),
         "h_cache": torch.zeros((B, S, D), dtype=f32, device=dev),
-        "x": torch.empty((B, D), dtype=f32, device=dev),
-        "h": torch.empty((B, D), dtype=cd, device=dev),
-        "qkv": torch.empty((B, D + 2 * Dkv), dtype=cd, device=dev),
+        "x": torch.zeros((B, D), dtype=f32, device=dev),  # step 0's input
+        "hf": torch.empty((B, D), dtype=f32, device=dev),
+        "q": torch.empty((B, D), dtype=cd, device=dev),
         "att": torch.empty((B, D), dtype=cd, device=dev),
         "q2": torch.empty((B, D), dtype=cd, device=dev),
         "z": torch.empty((B, F), dtype=cd, device=dev),
-        "head_out": torch.empty((B, V + D + 1), dtype=f32, device=dev),
-        # split-K partials of the largest product, and one counter per
-        # output tile (the kernels leave them at zero)
-        "gemm_ws": torch.empty((B * max(_splits(K) * N for K, N in products),),
-                               dtype=f32, device=dev),
-        "gemm_counters": torch.zeros(
-            (max(-(-N // 64) for _, N in products) * -(-B // 32),),
-            dtype=torch.int32, device=dev),
-        # cross-attention parts: (m, l, o[Dh]) per (row, kv head, key
-        # split, query head of the group)
-        "attn_ws": torch.empty(
-            (B * kvH * -(-Li // _KEY_CHUNK) * dims.kv_groups * (Dh + 2),),
-            dtype=f32, device=dev),
-        "attn_counters": torch.zeros((B * kvH,), dtype=torch.int32,
-                                     device=dev),
+        "head_out": torch.empty((B, NH), dtype=f32, device=dev),
+        "ptr": torch.empty((B, S), dtype=f32, device=dev),
         "output": torch.zeros((B, S), dtype=torch.int32, device=dev),
         "attach": torch.full((B, S), -1, dtype=torch.int32, device=dev),
         "done": torch.zeros((B,), dtype=torch.int32, device=dev),
         "halt": torch.zeros((1,), dtype=torch.int32, device=dev),
         "num_steps": torch.zeros((1,), dtype=torch.int32, device=dev),
+        "counter": torch.zeros((1,), dtype=torch.int32, device=dev),
     }
     ints = dict(B=B, S=S, D=D, H=H, kvH=kvH, Dh=Dh, F=F, V=V, L=L, Li=Li,
                 dof=dims.num_output_dof, end_token=dims.end,
-                is_bf16=int(cd == torch.bfloat16), early_exit=int(early_exit))
+                is_bf16=int(cd == torch.bfloat16), early_exit=int(early_exit),
+                simt_order=int(SIMT_ORDER), pdl=int(PDL))
     return ts, ints
 
 
@@ -273,13 +270,34 @@ def _check_inputs(memory, memory_mask, dims: ModelDims, cd):
         raise ValueError(f"unsupported compute dtype {cd}")
 
 
+def _check_cuda_dims(dims: ModelDims):
+    """The model shapes csrc/decode.cu's kernels take, as a readable error
+    before anything is prepared. `valid` there guards the same limits and
+    the bucket's; a call past them returns cudaErrorInvalidValue, which
+    raises."""
+    G, Dh, D, F = (dims.kv_groups, dims.head_dim, dims.num_model,
+                   dims.num_feedforward)
+    if not (G <= 8 and Dh in (32, 64, 128) and D % 128 == 0
+            and D <= 1024 and F % 128 == 0 and F <= 1024):
+        raise ValueError(
+            f"the CUDA decode takes kv groups <= 8, head dims 32, 64 or 128, "
+            f"and model and feed-forward widths that are multiples of 128 up "
+            f"to 1024; got G={G}, Dh={Dh}, D={D}, F={F}")
+
+
 @torch.no_grad()
 def persistent_greedy_decode(params, memory, memory_mask, dims: ModelDims, *,
                              compute_dtype=torch.bfloat16, early_exit=True):
     """Greedy decode over encoder memory (B, Li, D) with pad mask (B, Li)
     (True = pad). Returns samples / attach (B, S) int32 tensors, num_steps
     (int) and hidden (B, S, D) f32, the final hidden state of each step
-    (zero for steps not run)."""
+    (zero for steps not run).
+
+    On a CUDA tensor: one call of `csrc/decode.cu`'s loop (a graph of
+    `CHECK_EVERY` steps captured for this call and replayed until every row
+    is done), with the bf16 products on the tensor cores unless
+    `SIMT_ORDER`; a failed build, capture or launch raises. On a CPU tensor:
+    `greedy_decode_reference`."""
     global launches
     _check_inputs(memory, memory_mask, dims, compute_dtype)
     if memory.device.type == "cpu":
@@ -288,25 +306,19 @@ def persistent_greedy_decode(params, memory, memory_mask, dims: ModelDims, *,
                                        early_exit=early_exit)
     if memory.device.type != "cuda":
         raise ValueError(f"unsupported device {memory.device}")
-    G, Dh = dims.kv_groups, dims.head_dim
-    if G > 8 or Dh % 8 or 32 % (Dh // 8):
-        raise ValueError(f"the CUDA decode takes kv groups <= 8 and head "
-                         f"dims 8, 16, ..., 256 dividing into warps; got "
-                         f"G={G}, Dh={Dh}")
+    _check_cuda_dims(dims)
     ts, ints = _prepare(params, memory, memory_mask, dims, compute_dtype,
                         early_exit)
     args = DecodeArgs(**ints, **{n: ts[n].data_ptr() for n in _PTR_FIELDS})
     lib = _build.library()
     stream = _build.stream_handle(memory.device)
-    _build.check(lib.plank_decode_setup(ctypes.byref(args)),
-                 "plank_decode_setup")
+    stats = (ctypes.c_double * 5)()
     launches += 1
-    S = dims.max_output_length
-    for t in range(S):
-        _build.check(lib.plank_decode_step(ctypes.byref(args), t, stream),
-                     f"plank_decode_step(t={t})")
-        if early_exit and (t + 1) % CHECK_EVERY == 0 and t + 1 < S \
-                and int(ts["halt"].item()):
-            break
+    _build.check(lib.plank_decode_run(ctypes.byref(args), CHECK_EVERY,
+                                      stream, stats), "plank_decode_run")
+    last_graph.clear()
+    last_graph.update(capture_ms=stats[0], instantiate_ms=stats[1],
+                      nodes_per_step=stats[2] / CHECK_EVERY,
+                      replays=int(stats[3]), replay_ms=stats[4])
     return {"samples": ts["output"], "attach": ts["attach"],
             "num_steps": int(ts["num_steps"].item()), "hidden": ts["h_cache"]}
