@@ -37,7 +37,26 @@ instead of hanging, each printing one line (or a few) when it ends:
    as requests of 8, 24 and 32 programs, and score P/R/F1 against the
    fixture's ground truth, in bf16 (the serving setting) and f32, beside
    the JAX reference's golden F1; launches of each kernel on that path;
-5. train_kernel: fused_attention_train's CUDA forward and backward
+5. decode_options: persistent against mxu (int8 cross K/V, as
+   make_live_backend decodes) at B = 1, 8, 32, 128, 512 (the fixture's
+   drawings tiled, bf16, bucket 1152): the table that sets "auto"'s batch
+   band (decode.PERSISTENT_BATCHES), which must take the faster path at
+   every B; weight_quant (mxu, int8 weights and cross K/V) on the 64
+   drawings in bf16 and f32 against the JAX golden
+   (fixtures/serve64_wq_jax_golden.npz); greedy_decode_nocache against
+   the cached xla decode in f32 on the first 8 drawings (identical
+   samples, attach and num_steps), ms a step of both;
+6. beam: beam_decode(num_beams=4) of the 64 drawings in bf16 and f32
+   against the JAX golden (fixtures/serve64_beam4_jax_golden.npz), and
+   num_beams=1 against the xla greedy decode up to END in f32;
+7. http: make_http_server over a BucketRouter of three live "auto"
+   backends (buckets 512 / 768 / 1152, batch 16) on 127.0.0.1, the 64
+   drawings POSTed from 16 client threads: each answer names the smallest
+   bucket that fits its drawing and equals the decode of the batch its
+   server ran, repeated one call at a time; bf16 F1, /healthz's row
+   count, 400 for an over-long request, 404 for an unknown route,
+   programs/s;
+8. train_kernel: fused_attention_train's CUDA forward and backward
    against their plain version at the flagship's three training shapes
    (B=64, bf16 and f32, the training fixture's real lengths: encoder
    self-attention 8 heads over 2 kv heads at 1199 tokens, decoder causal
@@ -47,17 +66,19 @@ instead of hanging, each printing one line (or a few) when it ends:
    scaled_dot_product_attention times (the last at rate 0 only, a
    yardstick) beside the bound, and the f32 kernels' times at the
    encoder shape;
-6. train_step: one full-width training step of ep221 on the first 8
+9. train_step: one full-width training step of ep221 on the first 8
    drawings of the training fixture, kernels on, dropout 0, f32 and bf16,
    against the JAX reference's golden loss, accuracy and per-leaf gradient
    norms and probes (plankassembly_tpu_torch/fixtures/
    train_step_jax_golden.npz); launches per step;
-7. fit: the port's CLI `fit` on configs/train_synthetic_gqa.yaml at
-   B=64 from init, dropout 0.2, AUG_RATIO 0.1, 20 epochs of one step on
-   the training fixture, validation on the serving fixture through the
-   decode kernels, then the `last` checkpoint reloaded and compared;
-   losses, ms per step, val P/R/F1, launches of every kernel on that path;
-8. mha_kernels: the MHA decode kernels against their plain versions at
+10. fit: the port's CLI `fit` on configs/train_synthetic_gqa.yaml as it
+   stands (B=64, dropout 0.2, AUG_RATIO 0.1, decode_impl auto) from init,
+   20 epochs of one step on the training fixture, validation on the
+   serving fixture through "auto" (the full-precision mxu decode, the
+   encoder's flash_attention), then the `last` checkpoint reloaded and
+   compared; losses, ms per step, val P/R/F1, launches of every kernel on
+   that path;
+11. mha_kernels: the MHA decode kernels against their plain versions at
    the main request's shapes (the last 32 fixture programs through
    checkpoints/mha_complete_ep59.npz's encoder, bucket 1152, bf16 and
    f32): cross_attn_decode on int8 and on compute-dtype K/V, and
@@ -72,7 +93,7 @@ instead of hanging, each printing one line (or a few) when it ends:
    (point, row) pairs over FUSED_ROW_TOL (at most TRAJ_ROW_SHARE of
    them), the planted fault's (more than TRAJ_PLANTED_SHARE), and the
    new K/V's int8 flips, counted apart;
-9. mha_serve: ep59 serves the 64 fixture drawings through make_live_backend
+12. mha_serve: ep59 serves the 64 fixture drawings through make_live_backend
    + BatchingServer with cross_impl "kernel" and "fused", as requests of
    8, 24 and 32, in bf16 and f32, scored against the JAX reference's
    golden (plankassembly_tpu_torch/fixtures/serve64_mha_jax_golden.npz);
@@ -112,6 +133,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 # watchdog budget of each phase, seconds
 BUDGET = {"device": 240, "flash": 180, "decode": 240, "serve": 300,
+          "decode_options": 300, "beam": 300, "http": 300,
           "train_kernel": 300, "train_step": 240, "fit": 420,
           "mha_kernels": 240, "mha_serve": 420}
 PHASES = tuple(BUDGET)
@@ -185,6 +207,19 @@ TRAJ_STEPS = tuple(range(8, 72, 8))
 TRAJ_ROW_SHARE = 0.02
 TRAJ_PLANTED_SHARE = 0.2
 MHA_F1_TOL = {"bf16": 0.01, "f32": 0.002}   # kernel path vs the JAX golden
+# decode_options: the batches at which persistent and mxu are timed for
+# "auto"'s band (auto's pick may be at most AUTO_SLACK x the other's time),
+# and the drawings the no-cache decode runs
+AUTO_BATCHES = (1, 8, 32, 128, 512)
+AUTO_SLACK = 1.1
+NOCACHE_ROWS = 8
+BEAMS = 4
+# http: the bucket ladder of live backends, their batch, the client threads
+# and the served F1 of the JAX golden (serve64_jax_golden.npz, bf16)
+HTTP_BUCKETS = (512, 768, 1152)
+HTTP_BATCH = 16
+HTTP_CLIENTS = 16
+HTTP_F1 = 0.980625
 FUSED_PLAIN_F1_TOL = 0.005     # fused kernels vs their plain versions
 
 
@@ -880,6 +915,345 @@ def _upto_end(row, end):
 
 
 # ---------------------------------------------------------------- phase 5
+# ------------------------------------------------------------ phases 5-7
+def host_ms(fn, reps=2, warmup=1):
+    """Least host-clock ms of fn() over `reps` calls, each ended by a
+    synchronize (whole decodes, whose loops read flags on the host)."""
+    for _ in range(warmup):
+        fn()
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3
+
+
+def _stack(packed, rows):
+    """The input streams of packed[rows] as one batch on the card."""
+    return {k: torch.from_numpy(np.stack([packed[i][k] for i in rows]))
+            .to(DEVICE) for k in packed[0]}
+
+
+def _scores(samples, gt):
+    from plankassembly_tpu_torch.metrics import batch_scores
+    prec, rec, f1 = batch_scores(torch.as_tensor(np.asarray(samples)), gt)
+    return prec.mean().item(), rec.mean().item(), f1.mean().item()
+
+
+def _identical(samples, gold, end):
+    return float(np.mean([np.array_equal(_upto_end(a, end), _upto_end(b, end))
+                          for a, b in zip(np.asarray(samples), gold)]))
+
+
+def auto_band_table(params, dims, packed, bucket):
+    """persistent against mxu (kv_quant=True, as `make_live_backend`
+    decodes) at AUTO_BATCHES: the fixture's drawings tiled to B rows,
+    bf16, one encoder memory per B, decode_from_memory's host-clock ms
+    (least of 2 after a warm-up). Checks that "auto" takes the faster
+    of the two at every B (within AUTO_SLACK)."""
+    from plankassembly_tpu_torch import decode as D
+    from plankassembly_tpu_torch.decode import _pad_or_crop
+    from plankassembly_tpu_torch.models.model import encode
+
+    rows = []
+    for B in AUTO_BATCHES:
+        batch = _pad_or_crop(_stack(packed, [i % len(packed)
+                                             for i in range(B)]),
+                             bucket, dims)
+        memory = encode(params, batch, dims, compute_dtype=torch.bfloat16,
+                        flash=True)
+        ms, steps = {}, {}
+        for impl in ("persistent", "mxu"):
+            def run(impl=impl):
+                out = D.decode_from_memory(
+                    params, memory, batch["input_mask"], dims,
+                    compute_dtype=torch.bfloat16, kv_quant=True,
+                    cross_impl=impl)
+                steps[impl] = out["num_steps"]
+            ms[impl] = host_ms(run)
+        pick = D._pick_auto_impl("cuda", dims, B, kv_quant=True,
+                                 self_quant=False, weight_quant=False,
+                                 prequantized=False)
+        other = "mxu" if pick == "persistent" else "persistent"
+        rows.append({"B": B, "persistent_ms": ms["persistent"],
+                     "mxu_ms": ms["mxu"], "steps": steps["persistent"],
+                     "persistent_ms_per_step":
+                         ms["persistent"] / steps["persistent"],
+                     "mxu_ms_per_step": ms["mxu"] / steps["mxu"],
+                     "auto": pick})
+        log(f"decode_options auto band: B={B} bucket {bucket} bf16, "
+            f"{steps['persistent']} steps: persistent {ms['persistent']:.2f} "
+            f"ms ({ms['persistent'] / steps['persistent']:.3f} a step), mxu "
+            f"{ms['mxu']:.2f} ms ({ms['mxu'] / steps['mxu']:.3f} a step); "
+            f"auto takes {pick}")
+        check(ms[pick] <= AUTO_SLACK * ms[other],
+              f"auto takes {pick} at B={B}, {ms[pick]:.2f} ms against "
+              f"{other}'s {ms[other]:.2f}: PERSISTENT_BATCHES "
+              f"{D.PERSISTENT_BATCHES} disagrees with the card")
+        del memory
+    return rows
+
+
+def phase_decode_options(params, dims, packed, gt, bucket):
+    """The auto band table; weight_quant (mxu) on the 64 drawings against
+    the JAX golden, bf16 and f32; the no-cache decode against the cached
+    full-precision decode on the first NOCACHE_ROWS drawings in f32."""
+    from plankassembly_tpu_torch.decode import (
+        greedy_decode, greedy_decode_nocache,
+    )
+
+    res = {"band": auto_band_table(params, dims, packed, bucket)}
+    golden = np.load(os.path.join(FIXTURES, "serve64_wq_jax_golden.npz"))
+    check(int(golden["bucket"]) == bucket, "weight_quant golden bucket")
+    batch = _stack(packed, range(len(packed)))
+    for name, cd in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        _reset_counts()
+        out = {}
+
+        def run():
+            out.update(greedy_decode(
+                params, batch, dims, compute_dtype=cd, kv_bucket=bucket,
+                kv_quant=True, self_quant=False, cross_impl="mxu",
+                weight_quant=True))
+        ms = host_ms(run, reps=1, warmup=0)
+        counts = _launch_counts()
+        samples = out["samples"].cpu().numpy()
+        p, r, f1 = _scores(samples, gt)
+        gold_f1 = float(golden[f"f1_{name}"].mean())
+        same = _identical(samples, golden[f"samples_{name}"], dims.end)
+        log(f"decode_options weight_quant {name} (mxu, int8 cross K/V and "
+            f"weights): P {p:.6f} R {r:.6f} F1 {f1:.6f} vs JAX golden F1 "
+            f"{gold_f1:.6f} (tol {SERVE_F1_TOL[name]}), identical programs "
+            f"{same:.4f}, {out['num_steps']} steps in {ms:.1f} ms; launches "
+            f"{counts}")
+        check(abs(f1 - gold_f1) <= SERVE_F1_TOL[name],
+              f"weight_quant {name} F1 {f1} vs golden {gold_f1}")
+        check(counts["flash_attention"] > 0,
+              "the weight_quant path ran no flash_attention")
+        res[f"wq_{name}"] = {"f1": f1, "golden_f1": gold_f1,
+                             "identical": same, "ms": ms}
+
+    few = _stack(packed, range(NOCACHE_ROWS))
+    outs, ms = {}, {}
+    for impl, fn in (("nocache", greedy_decode_nocache),
+                     ("cached", lambda *a, **k: greedy_decode(
+                         *a, cross_impl="xla", **k))):
+        def run(fn=fn, impl=impl):
+            outs[impl] = fn(params, few, dims, compute_dtype=torch.float32)
+        _reset_counts()
+        ms[impl] = host_ms(run, reps=1, warmup=0)
+        check(_launch_counts()["flash_attention"] > 0,
+              f"the {impl} decode ran no flash_attention")
+    a, b = outs["nocache"], outs["cached"]
+    same = (torch.equal(a["samples"], b["samples"])
+            and torch.equal(a["attach"], b["attach"])
+            and a["num_steps"] == b["num_steps"])
+    steps = a["num_steps"]
+    log(f"decode_options no-cache f32, the first {NOCACHE_ROWS} drawings at "
+        f"width {few['input_mask'].shape[1]}: samples, attach and num_steps "
+        f"identical to the cached xla decode {same}; {steps} steps, no-cache "
+        f"{ms['nocache']:.1f} ms ({ms['nocache'] / steps:.3f} a step), cached "
+        f"{ms['cached']:.1f} ms ({ms['cached'] / steps:.3f} a step), on "
+        f"{card_line()}")
+    check(same, "no-cache decode differs from the cached decode")
+    res["nocache"] = {"steps": steps, "nocache_ms": ms["nocache"],
+                      "cached_ms": ms["cached"]}
+    return res
+
+
+def phase_beam(params, dims, packed, gt, bucket):
+    """beam_decode(num_beams=4) of the 64 drawings against the JAX golden,
+    bf16 and f32; num_beams=1 against the xla greedy decode up to END."""
+    from plankassembly_tpu_torch.beam import beam_decode
+    from plankassembly_tpu_torch.decode import greedy_decode
+
+    golden = np.load(os.path.join(FIXTURES, "serve64_beam4_jax_golden.npz"))
+    check(int(golden["bucket"]) == bucket, "beam golden bucket")
+    batch = _stack(packed, range(len(packed)))
+    res = {}
+    for name, cd in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        _reset_counts()
+        out = {}
+
+        def run():
+            out.update(beam_decode(params, batch, dims, num_beams=BEAMS,
+                                   compute_dtype=cd, kv_bucket=bucket))
+        ms = host_ms(run, reps=1, warmup=0)
+        counts = _launch_counts()
+        samples = out["samples"].cpu().numpy()
+        p, r, f1 = _scores(samples, gt)
+        gold_f1 = float(golden[f"f1_{name}"].mean())
+        same = _identical(samples, golden[f"samples_{name}"], dims.end)
+        score_err = float(np.abs(out["beam_scores"].cpu().numpy()
+                                 - golden[f"beam_scores_{name}"]).max())
+        log(f"beam K={BEAMS} {name}: P {p:.6f} R {r:.6f} F1 {f1:.6f} vs JAX "
+            f"golden F1 {gold_f1:.6f} (tol {SERVE_F1_TOL[name]}), identical "
+            f"programs {same:.4f}, max |beam score - golden| {score_err:.3e},"
+            f" {out['num_steps']} steps (golden "
+            f"{int(golden[f'num_steps_{name}'])}) in {ms:.1f} ms "
+            f"({ms / out['num_steps']:.3f} a step); launches {counts}")
+        check(abs(f1 - gold_f1) <= SERVE_F1_TOL[name],
+              f"beam {name} F1 {f1} vs golden {gold_f1}")
+        check(counts["flash_attention"] > 0, "the beam path ran no "
+              "flash_attention")
+        res[name] = {"f1": f1, "golden_f1": gold_f1, "identical": same,
+                     "ms": ms, "steps": out["num_steps"]}
+
+    b = beam_decode(params, batch, dims, num_beams=1,
+                    compute_dtype=torch.float32, kv_bucket=bucket)
+    g = greedy_decode(params, batch, dims, compute_dtype=torch.float32,
+                      kv_bucket=bucket, cross_impl="xla")
+    bs, gs = b["samples"].cpu().numpy(), g["samples"].cpu().numpy()
+    ba, ga = b["attach"].cpu().numpy(), g["attach"].cpu().numpy()
+    bad = [i for i in range(len(gs)) if not (
+        np.array_equal(bs[i, :len(_upto_end(gs[i], dims.end))],
+                       _upto_end(gs[i], dims.end))
+        and np.array_equal(ba[i, :len(_upto_end(gs[i], dims.end))],
+                           ga[i, :len(_upto_end(gs[i], dims.end))]))]
+    log(f"beam K=1 f32 against the xla greedy decode up to END: "
+        f"{len(gs) - len(bad)} of {len(gs)} programs equal, tokens and "
+        f"attach")
+    check(not bad, f"beam K=1 differs from greedy on programs {bad}")
+    return res
+
+
+def _overlong_info(cfg, n_lines=290):
+    """A request of 4 * n_lines + 1 tokens: within the model's input
+    length, beyond the ladder's largest bucket."""
+    rng = np.random.default_rng(5)
+    lo = rng.uniform(-0.9, 0.5, (n_lines, 2))
+    lines = np.concatenate([lo, lo + rng.uniform(0.05, 0.4, (n_lines, 2))], 1)
+    check(4 * n_lines + 1 <= cfg.DATA.MAX_INPUT_LENGTH - 1,
+          "the over-long request does not fit the model")
+    return {"name": "overlong", "lines": lines.round(3).tolist(),
+            "views": (np.arange(n_lines) % 3).tolist(),
+            "types": (np.arange(n_lines) % 2).tolist()}
+
+
+def phase_http(params, cfg, dims, infos, packed, gt):
+    """A BucketRouter of three live "auto" backends behind
+    make_http_server on 127.0.0.1, all 64 drawings POSTed from
+    HTTP_CLIENTS threads; each answer against the decode of the batch its
+    server ran, repeated one call at a time, at that bucket."""
+    import urllib.error
+    import urllib.request
+
+    from plankassembly_tpu_torch.serving import (
+        BatchingServer, BucketRouter, make_http_server, make_live_backend,
+    )
+
+    calls = []   # (bucket, request, answer) of every backend call, in order
+    servers = []
+    for bucket in HTTP_BUCKETS:
+        backend, meta = make_live_backend(params, cfg, batch=HTTP_BATCH,
+                                          bucket=bucket, device=DEVICE)
+
+        def recorded(request, backend=backend, bucket=bucket):
+            out = backend(request)
+            calls.append((bucket, request, out))
+            return out
+        servers.append(BatchingServer(recorded, meta, max_wait_ms=20))
+    router = BucketRouter(servers)
+    httpd = make_http_server(router, cfg, dims, port=0)
+    serving_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    serving_thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def request(method, path, body=None):
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(base + path, data=data, method=method)
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.loads(r.read().decode())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read().decode())
+
+    answers = [None] * len(infos)
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+
+        def client(k):
+            for i in range(k, len(infos), HTTP_CLIENTS):
+                answers[i] = request("POST", "/v1/reconstruct", infos[i])
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(HTTP_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=240)
+        wall = time.perf_counter() - t0
+        counts = _launch_counts()
+        check(not any(t.is_alive() for t in threads),
+              "an HTTP client did not come back")
+        health = request("GET", "/healthz")
+        over = request("POST", "/v1/reconstruct", _overlong_info(cfg))
+        missing = request("GET", "/v1/nothing")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        router.close()
+    check(all(a is not None and a[0] == 200 for a in answers),
+          f"an HTTP request failed: {[a for a in answers if a and a[0] != 200][:2]}")
+    lengths = [int((~p["input_mask"]).sum()) for p in packed]
+    want_bucket = [min(b for b in HTTP_BUCKETS if b >= n) for n in lengths]
+    got_bucket = [a[1]["bucket"] for a in answers]
+    check(got_bucket == want_bucket, "an answer names another bucket than "
+          "the smallest that fits its drawing")
+
+    # each batch a server ran, decoded again one call at a time
+    from plankassembly_tpu_torch.decode import greedy_decode
+    from plankassembly_tpu_torch.serving import postprocess_prediction
+    served, direct = {}, {}
+    for bucket, req, out in calls:
+        ref = greedy_decode(
+            params, {k: torch.from_numpy(v).to(DEVICE)
+                     for k, v in req.items()}, dims, kv_bucket=bucket,
+            kv_quant=True)
+        rs, ra = ref["samples"].cpu().numpy(), ref["attach"].cpu().numpy()
+        for j, key in enumerate(req["input_value"]):
+            served[(bucket, key.tobytes())] = (out["samples"][j],
+                                               out["attach"][j])
+            direct[(bucket, key.tobytes())] = (rs[j], ra[j])
+    bad, samples = [], []
+    for i, (ans, p) in enumerate(zip(answers, packed)):
+        key = (want_bucket[i], np.asarray(p["input_value"]).tobytes())
+        (s, a), (ds, da) = served[key], direct[key]
+        n = len(_upto_end(ds, dims.end))
+        pred, attach = postprocess_prediction(s, a, dims)
+        if not (np.array_equal(s[:n], ds[:n]) and np.array_equal(a[:n], da[:n])
+                and ans[1]["prediction"] == pred.tolist()
+                and ans[1]["attach"] == attach):
+            bad.append(i)
+        samples.append(s)
+    p_, r_, f1 = _scores(np.stack(samples), gt)
+    rate = len(infos) / wall
+    log(f"http: {len(infos)} drawings from {HTTP_CLIENTS} client threads "
+        f"through a ladder of {HTTP_BUCKETS} (batch {HTTP_BATCH}, auto, bf16)"
+        f" in {wall:.2f} s = {rate:.2f} programs/s on {card_line()}; "
+        f"{len(calls)} backend calls, rows per call "
+        f"{sorted(int(len(c[1]['input_value'])) for c in calls)}, each "
+        f"bucket's answers {dict(zip(HTTP_BUCKETS, map(got_bucket.count, HTTP_BUCKETS)))}; "
+        f"answers equal to the one-at-a-time decode of their batch up to END "
+        f"{len(infos) - len(bad)} of {len(infos)}; F1 {f1:.6f} (P {p_:.6f} R {r_:.6f}) "
+        f"vs {HTTP_F1} (tol {SERVE_F1_TOL['bf16']}); healthz {health[1]}; "
+        f"over-long request {over[0]} ({over[1].get('error', '')[:60]}); "
+        f"unknown route {missing[0]}; launches {counts}")
+    check(not bad, f"answers differ from the one-at-a-time decode: {bad}")
+    check(abs(f1 - HTTP_F1) <= SERVE_F1_TOL["bf16"], f"http F1 {f1}")
+    check(health[0] == 200 and health[1]["rows_served"] == len(infos),
+          f"healthz {health}")
+    check(over[0] == 400, f"over-long request answered {over[0]}")
+    check(missing[0] == 404, f"unknown route answered {missing[0]}")
+    check(counts["flash_attention"] > 0
+          and counts["persistent_greedy_decode"] > 0,
+          f"a kernel did not run on the HTTP path: {counts}")
+    return {"programs_per_s": rate, "launches": counts, "f1": f1}
+
+
 def _train_shapes(train_packed):
     """The flagship's three training attention shapes with the training
     fixture's real lengths: (name, H, Hkv, Lq, Lk, causal, lengths)."""
@@ -1248,7 +1622,6 @@ def phase_fit(train_infos, serve_infos, tmp):
             "--trainer.max_epochs", str(FIT_EPOCHS),
             "--trainer.check_val_every_n_epoch", str(FIT_EPOCHS),
             "--trainer.log_every_n_steps", "1",
-            "--trainer.decode_impl", "persistent",
             "--trainer.default_root_dir", os.path.join(tmp, "runs")]
     log("fit: python -m plankassembly_tpu_torch.cli " + " ".join(argv[:4])
         + " ... (B=64, dropout 0.2, AUG_RATIO 0.1, seed 2022, "
@@ -1258,14 +1631,18 @@ def phase_fit(train_infos, serve_infos, tmp):
     trainer, state = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    # validation decodes by the config's decode_impl "auto" without
+    # kv_quant: the full-precision mxu path, no persistent decode
     counts = {"fused_attention_train_fwd": FT.fwd_launches,
               "fused_attention_train_bwd": FT.bwd_launches,
-              "flash_attention": A.launches,
-              "persistent_greedy_decode": PD.launches}
+              "flash_attention": A.launches}
     cfg = trainer.cfg
     check((cfg.BATCH_SIZE, cfg.MODEL.DROPOUT, cfg.DATA.AUG_RATIO,
-           cfg.seed_everything, cfg.trainer.fused_attention) ==
-          (64, 0.2, 0.1, 2022, True), "fit: not the flagship's settings")
+           cfg.seed_everything, cfg.trainer.fused_attention,
+           cfg.trainer.decode_impl, cfg.trainer.kv_quant) ==
+          (64, 0.2, 0.1, 2022, True, "auto", False),
+          "fit: not the flagship's settings")
+    check(PD.launches == 0, "fit: validation took the persistent decode")
     with open(os.path.join(trainer.log_dir, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     steps = [r for r in recs if "train/loss" in r]
@@ -1965,6 +2342,16 @@ def main() -> int:
             with Phase("serve"):
                 res["serve"] = phase_serve(params, cfg, dims, packed, gt,
                                            golden, bucket)
+        if "decode_options" in phases:
+            with Phase("decode_options"):
+                res["decode_options"] = phase_decode_options(
+                    params, dims, packed, gt, bucket)
+        if "beam" in phases:
+            with Phase("beam"):
+                res["beam"] = phase_beam(params, dims, packed, gt, bucket)
+        if "http" in phases:
+            with Phase("http"):
+                res["http"] = phase_http(params, cfg, dims, infos, packed, gt)
         if "train_kernel" in phases:
             with Phase("train_kernel"):
                 train_root = os.path.join(tmp, "train_kernel")

@@ -6,7 +6,14 @@ Ports the KV-cached decode of `plankassembly_tpu/decode.py`:
 `decode_from_memory`, which runs one of the JAX package's decode paths
 (`cross_impl`):
 
-- "persistent" (the default): `ops.persistent_decode`, the int8 cross-KV /
+- "auto" (the default, as in JAX): resolved per call by `_pick_auto_impl`
+  from the device, the batch and the options. Off CUDA it is "xla"; on
+  CUDA it is "persistent" when the caller opted into its built-in
+  semantics (`kv_quant`, grouped-query K/V, no `self_quant`, no weight
+  quantization) and the batch lies in the band measured on the card
+  (`PERSISTENT_BATCHES`), else "mxu". With `kv_quant` unset that is the
+  full-precision path;
+- "persistent": `ops.persistent_decode`, the int8 cross-KV /
   compute-dtype self-KV loop of CUDA kernels; its semantics are JAX's
   ``cross_impl="xla", kv_quant=True, self_quant=False``;
 - "xla": the plain einsum loop, cross K/V in the compute dtype or int8
@@ -23,9 +30,15 @@ Ports the KV-cached decode of `plankassembly_tpu/decode.py`:
   `ops.fused_decode.fused_decoder_layer` / `fused_ffn` over int8 self and
   cross caches (MHA only), with a compute-dtype hidden cache.
 
-Every path ends each step with the reference's mixed vocab ‖ pointer ‖
-switch sampler (`_mixed_sample`) and its quirks, and exits once every row
-has emitted END (rows that ended earlier keep decoding trailing tokens).
+"xla" and "mxu" also take int8 decoder and head weights (`weight_quant`,
+or weights already quantized by `quantize_decoder_weights`), and
+`gqa_self_impl` picks how grouped-query attention contracts. Every path
+ends each step with the reference's mixed vocab ‖ pointer ‖ switch sampler
+(`_mixed_sample`) and its quirks, and exits once every row has emitted END
+(rows that ended earlier keep decoding trailing tokens).
+`greedy_decode_nocache` recomputes the whole decoder stack over the prefix
+at every step: the parity oracle of the cached paths and the baseline a
+benchmark compares them with.
 """
 from __future__ import annotations
 
@@ -37,15 +50,71 @@ import torch
 
 from plankassembly_tpu_torch.config import ModelDims
 from plankassembly_tpu_torch.models.model import (
-    NEG_INF, encode, layer_norm, pointer_structure_mask,
+    NEG_INF, decode_stack, embed_output, encode, layer_norm,
+    pointer_structure_mask,
 )
 from plankassembly_tpu_torch.ops import cross_decode as CD
 from plankassembly_tpu_torch.ops import fused_decode as FD
 
 EPS = 1e-6
-IMPLS = ("persistent", "xla", "mxu", "kernel", "fused")
+IMPLS = ("auto", "persistent", "xla", "mxu", "kernel", "fused")
+GQA_SELF_IMPLS = ("auto", "expand", "grouped")
 # steps between two host reads of the all-done flags in the plain loops
 CHECK_EVERY = 8
+# the batches (smallest, largest) at which "auto" takes "persistent" on
+# CUDA: where `chip_smoke.py` decode_options timed the persistent loop
+# faster than "mxu" (ep221, bf16, bucket 1152; PERF.md §5)
+PERSISTENT_BATCHES = (1, 512)
+
+
+def _pick_auto_impl(device_type: str, dims: ModelDims, batch: int, *,
+                    kv_quant: bool, self_quant: bool, weight_quant: bool,
+                    prequantized: bool) -> str:
+    """Resolve cross_impl="auto" (JAX `decode._pick_auto_impl` with the
+    CUDA device in the TPU's place). Off CUDA: "xla". On CUDA: the
+    persistent kernels when the caller accepted their built-in semantics
+    (int8 cross K/V, grouped-query layout, no int8 self K/V or weights)
+    and the batch lies in `PERSISTENT_BATCHES`; otherwise "mxu"."""
+    if device_type != "cuda":
+        return "xla"
+    lo, hi = PERSISTENT_BATCHES
+    if (kv_quant and dims.kv_heads < dims.num_head
+            and not self_quant and not weight_quant and not prequantized
+            and lo <= batch <= hi):
+        return "persistent"
+    return "mxu"
+
+
+def _is_prequantized(w) -> bool:
+    return isinstance(w, dict) and "q" in w
+
+
+def _quantize_weight(w):
+    """(..., K, N) weights -> (int8 (..., K, N), f32 scales (..., N)):
+    symmetric, one scale per output channel (JAX `_qw`)."""
+    w32 = w.float()
+    s = torch.clamp(w32.abs().amax(dim=-2) / 127.0, min=1e-12)
+    return torch.round(w32 / s[..., None, :]).to(torch.int8), s
+
+
+def quantize_decoder_weights(params):
+    """The decode loop's weight matrices as int8 ahead of the decode (JAX
+    `decode.quantize_decoder_weights`): self-attention q/k/v/o,
+    cross-attention q/o, both FFN matrices and the vocab and pointer heads
+    become ``{"q": int8 (..., K, N), "s": f32 (..., N)}``; everything else
+    stays as it is. "xla" and "mxu" decode such params directly."""
+    def q(w):
+        wq, s = _quantize_weight(w)
+        return {"q": wq, "s": s}
+
+    dec = dict(params["decoder"])
+    for block, keys in (("self_attn", ("wq", "wk", "wv", "wo")),
+                        ("cross_attn", ("wq", "wo")), ("ffn", ("w1", "w2"))):
+        dec[block] = {k: q(v) if k in keys else v
+                      for k, v in dec[block].items()}
+    heads = {h: ({**p, "w": q(p["w"])} if h in ("vocab", "pointer") else p)
+             for h, p in params["heads"].items()}
+    return {**params, "decoder": dec, "heads": heads}
 
 
 def precompute_cross_kv(params, memory, dims: ModelDims, compute_dtype):
@@ -73,6 +142,15 @@ def _quantize_in_dtype(x):
     return torch.round(x.float() / scale.float()).to(torch.int8), scale
 
 
+def _head_mm(head, h_t):
+    """h_t @ w + b, where an int8 w carries its per-column scale "s",
+    applied to the product (JAX `_mixed_sample._head_mm`)."""
+    y = h_t @ head["w"].to(h_t.dtype)
+    if "s" in head:
+        y = y * head["s"]
+    return y + head["b"]
+
+
 def _mixed_sample(heads, dims: ModelDims, struct, pos, h_t, h_cache,
                   output, attach, done, t):
     """Sampling tail of one step: mixed vocab ‖ pointer ‖ switch
@@ -81,9 +159,9 @@ def _mixed_sample(heads, dims: ModelDims, struct, pos, h_t, h_cache,
     for the first plank's 6 coords, first index on ties). Updates
     output/attach/done in place at column t."""
     S = dims.max_output_length
-    vocab_logits = h_t @ heads["vocab"]["w"] + heads["vocab"]["b"]
+    vocab_logits = _head_mm(heads["vocab"], h_t)
     vocab_probs = torch.softmax(vocab_logits, dim=-1)
-    feature = h_t @ heads["pointer"]["w"] + heads["pointer"]["b"]
+    feature = _head_mm(heads["pointer"], h_t)
     # a compute-dtype hidden cache promotes to f32, as jnp does
     pointer_logits = torch.einsum("bd,bsd->bs", feature,
                                   h_cache.to(feature.dtype))
@@ -137,20 +215,23 @@ def _pad_or_crop(inputs: dict, kv_bucket, dims: ModelDims) -> dict:
     return out
 
 
-def _check_impl(cross_impl):
+def _check_impl(cross_impl, gqa_self_impl="auto"):
     if cross_impl not in IMPLS:
         raise ValueError(f"unknown cross_impl {cross_impl!r}; one of {IMPLS}")
+    if gqa_self_impl not in GQA_SELF_IMPLS:
+        raise ValueError(f"unknown gqa_self_impl {gqa_self_impl!r}; one of "
+                         f"{GQA_SELF_IMPLS}")
 
 
 @torch.no_grad()
 def greedy_decode(params, batch: dict, dims: ModelDims,
                   compute_dtype=torch.bfloat16, early_exit=True,
-                  kv_bucket=None, kv_quant=None, cross_impl="persistent",
-                  self_quant=None):
+                  kv_bucket=None, kv_quant=None, cross_impl="auto",
+                  gqa_self_impl="auto", self_quant=None, weight_quant=False):
     """Batched greedy decode on the device of `batch`'s tensors. Returns
     samples (B, S) int32, attach (B, S) int32 (-1 = no pointer) and
     num_steps (int, steps executed)."""
-    _check_impl(cross_impl)
+    _check_impl(cross_impl, gqa_self_impl)
     inputs = {k: v for k, v in batch.items() if k.startswith("input")}
     inputs = _pad_or_crop(inputs, kv_bucket, dims)
     memory = encode(params, inputs, dims, compute_dtype=compute_dtype,
@@ -161,22 +242,51 @@ def greedy_decode(params, batch: dict, dims: ModelDims,
     return decode_from_memory(params, memory, inputs["input_mask"], dims,
                               compute_dtype=compute_dtype,
                               early_exit=early_exit, kv_quant=kv_quant,
-                              cross_impl=cross_impl, self_quant=self_quant)
+                              cross_impl=cross_impl,
+                              gqa_self_impl=gqa_self_impl,
+                              self_quant=self_quant,
+                              weight_quant=weight_quant)
 
 
 @torch.no_grad()
 def decode_from_memory(params, memory, memory_mask, dims: ModelDims,
                        compute_dtype=torch.bfloat16, early_exit=True,
-                       kv_quant=None, cross_impl="persistent",
-                       self_quant=None):
+                       kv_quant=None, cross_impl="auto",
+                       gqa_self_impl="auto", self_quant=None,
+                       weight_quant=False):
     """KV-cached greedy decode over encoder memory (B, Li, D) with its pad
     mask (B, Li) (True = pad), by the path `cross_impl` names (see the
     module docstring). kv_quant: int8 cross K/V (ignored by "persistent"
     and "fused", which always use it); self_quant: int8 self K/V, "mxu"
-    only (None follows kv_quant)."""
-    _check_impl(cross_impl)
+    only (None follows kv_quant); weight_quant: int8 decoder and head
+    weights with one scale per output channel, "xla" and "mxu" only (the
+    others warn and ignore it; weights from `quantize_decoder_weights`
+    imply it, and the others raise on them); gqa_self_impl (grouped-query
+    models): "expand" repeats K/V over each group, "grouped" contracts
+    per (kv head, group), "auto" takes expand up to B=256."""
+    _check_impl(cross_impl, gqa_self_impl)
     explicit_no_quant = kv_quant is False
     kv_quant = bool(kv_quant)
+    prequantized = _is_prequantized(params["decoder"]["self_attn"]["wq"])
+    if cross_impl == "auto":
+        cross_impl = _pick_auto_impl(
+            memory.device.type, dims, memory.shape[0], kv_quant=kv_quant,
+            self_quant=bool(self_quant), weight_quant=weight_quant,
+            prequantized=prequantized)
+    if weight_quant and not prequantized and cross_impl not in ("mxu",
+                                                                "xla"):
+        warnings.warn(
+            f"weight_quant is only implemented for the mxu/xla decode "
+            f"paths; ignored with cross_impl={cross_impl!r}", stacklevel=2)
+        weight_quant = False
+    if prequantized:
+        if cross_impl not in ("mxu", "xla"):
+            raise ValueError(
+                "pre-quantized decoder weights (quantize_decoder_weights) "
+                f"require cross_impl 'mxu'/'xla', got {cross_impl!r}")
+        weight_quant = True
+    if gqa_self_impl == "auto":
+        gqa_self_impl = "expand" if memory.shape[0] <= 256 else "grouped"
     if cross_impl == "persistent":
         from plankassembly_tpu_torch.ops.persistent_decode import (
             persistent_greedy_decode,
@@ -193,11 +303,17 @@ def decode_from_memory(params, memory, memory_mask, dims: ModelDims,
         dec = FusedDecode(params, memory, memory_mask, dims, compute_dtype)
         return dec.run(early_exit)
     return _decode_cached(params, memory, memory_mask, dims, compute_dtype,
-                          early_exit, kv_quant, self_quant, cross_impl)
+                          early_exit, kv_quant, self_quant, cross_impl,
+                          weight_quant, gqa_self_impl)
 
 
 def _layers(tree, L):
-    return [{k: v[l] for k, v in tree.items()} for l in range(L)]
+    """Layer l's slice of each stacked leaf (an int8 weight's "q" and "s"
+    too), for l < L."""
+    def take(v, l):
+        return {k: take(x, l) for k, x in v.items()} if isinstance(v, dict) \
+            else v[l]
+    return [{k: take(v, l) for k, v in tree.items()} for l in range(L)]
 
 
 def _embed_step(emb, output, t, dof):
@@ -234,11 +350,14 @@ def _run_steps(step, S, early_exit, done, output, attach):
 
 
 def _decode_cached(params, memory, memory_mask, dims: ModelDims, cd,
-                   early_exit, kv_quant, self_quant, cross_impl):
+                   early_exit, kv_quant, self_quant, cross_impl,
+                   weight_quant=False, gqa_self_impl="expand"):
     """The JAX package's general cached loop (`decode_from_memory` with
     cross_impl "xla", "mxu" or "kernel"), operation for operation: products
     in the compute dtype with f32 scores and weights, the residual stream,
-    layer norms and heads in f32."""
+    layer norms and heads in f32. With `weight_quant` each product takes
+    the int8 weight cast to the compute dtype and scales its output per
+    column, in the compute dtype (JAX's order)."""
     use_kernel = cross_impl == "kernel"
     use_mxu = cross_impl == "mxu"
     S, H, Dh, D = (dims.max_output_length, dims.num_head, dims.head_dim,
@@ -288,22 +407,24 @@ def _decode_cached(params, memory, memory_mask, dims: ModelDims, cd,
     cross_bias = bias_f[:, None, None, :]
 
     dec, heads, emb = params["decoder"], params["heads"], params["embed"]
-    # the products' weights in the compute dtype once, not at every step
-    sa_l, ca_l, ffn_l = ([{k: v.to(cd) for k, v in p.items()}
-                          for p in _layers(dec[n], L)]
-                         for n in ("self_attn", "cross_attn", "ffn"))
     n1_l, n2_l, n3_l = (_layers(dec[n], L) for n in ("norm1", "norm2", "norm3"))
-    wqkv_l = [torch.cat([p["wq"], p["wk"], p["wv"]], dim=1) for p in sa_l]
-    bqkv_l = [torch.cat([p["bq"], p["bk"], p["bv"]]) for p in sa_l]
-
-    def mm(x, w, b):
-        return x.to(cd) @ w.to(cd) + b.to(cd)
+    mats = _decode_weights(dec, L, cd, weight_quant)
+    if weight_quant:
+        heads = _quantized_heads(heads, cd)
 
     def scores_of(q, k):  # q (B,1,H,Dh), k (B,T,kvH,Dh) -> (B,H,1,T) f32
+        if G > 1 and gqa_self_impl == "grouped":
+            s = torch.einsum("bqngd,bknd->bngqk",
+                             q.float().reshape(B, 1, kvH, G, Dh), k.float())
+            return s.reshape(B, H, 1, -1)
         k = k.repeat_interleave(G, dim=2) if G > 1 else k
         return torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
 
     def out_of(w, v):  # w (B,H,1,T) cd, v (B,T,kvH,Dh) -> (B,1,H,Dh) f32
+        if G > 1 and gqa_self_impl == "grouped":
+            o = torch.einsum("bngqk,bknd->bqngd",
+                             w.float().reshape(B, kvH, G, 1, -1), v.float())
+            return o.reshape(B, 1, H, Dh)
         v = v.repeat_interleave(G, dim=2) if G > 1 else v
         return torch.einsum("bhqk,bkhd->bqhd", w.float(), v.float())
 
@@ -366,7 +487,7 @@ def _decode_cached(params, memory, memory_mask, dims: ModelDims, cd,
         self_bias = torch.where(pos <= t, 0.0, NEG_INF)[None, None, None, :]
         for l in range(L):
             h = layer_norm(n1_l[l], x)
-            qkv = mm(h, wqkv_l[l], bqkv_l[l])[:, 0]
+            qkv = _product(h, mats[l]["qkv"], cd)[:, 0]
             q = qkv[:, :D].reshape(B, 1, H, Dh)
             k_t = qkv[:, D:D + Dkv].reshape(B, kvH, Dh)
             v_t = qkv[:, D + Dkv:].reshape(B, kvH, Dh)
@@ -388,17 +509,17 @@ def _decode_cached(params, memory, memory_mask, dims: ModelDims, cd,
                 w = torch.softmax(scores_of(q, k_cache[l]) * scale
                                   + self_bias, dim=-1)
                 a = out_of(w.to(cd), v_cache[l])
-            a = mm(a.reshape(B, 1, D), sa_l[l]["wo"], sa_l[l]["bo"])
+            a = _product(a.reshape(B, 1, D), mats[l]["wo"], cd)
             x = x + a.to(x.dtype)
 
             h = layer_norm(n2_l[l], x)
-            q2 = mm(h, ca_l[l]["wq"], ca_l[l]["bq"]).reshape(B, 1, H, Dh)
-            c = mm(cross(l, q2), ca_l[l]["wo"], ca_l[l]["bo"])
+            q2 = _product(h, mats[l]["cwq"], cd).reshape(B, 1, H, Dh)
+            c = _product(cross(l, q2), mats[l]["cwo"], cd)
             x = x + c.to(x.dtype)
 
             h = layer_norm(n3_l[l], x)
-            z = torch.relu(mm(h, ffn_l[l]["w1"], ffn_l[l]["b1"]))
-            z = mm(z, ffn_l[l]["w2"], ffn_l[l]["b2"])
+            z = torch.relu(_product(h, mats[l]["w1"], cd))
+            z = _product(z, mats[l]["w2"], cd)
             x = x + z.to(x.dtype)
 
         h_t = layer_norm(dec["final_norm"], x)[:, 0].float()
@@ -408,6 +529,66 @@ def _decode_cached(params, memory, memory_mask, dims: ModelDims, cd,
 
     n = _run_steps(step, S, early_exit, done, output, attach)
     return {"samples": output, "attach": attach, "num_steps": n}
+
+
+def _weight_form(w, cd, weight_quant):
+    """(weight, column scales or None) as a product of the decode loop
+    takes it: int8 and its scales under weight quantization (already so
+    in weights from `quantize_decoder_weights`), else w in the compute
+    dtype, cast once rather than at every step."""
+    if _is_prequantized(w):
+        return w["q"], w["s"]
+    if weight_quant:
+        return _quantize_weight(w)
+    return w.to(cd), None
+
+
+def _product(x, wsb, cd):
+    """x @ w + b in the compute dtype, wsb = (w, column scales or None, b):
+    an int8 w's scales multiply the product before the bias (JAX `_mm`)."""
+    w, s, b = wsb
+    y = x.to(cd) @ w.to(cd)
+    if s is not None:
+        y = y * s.to(cd)
+    return y + b
+
+
+def _quantized_heads(heads, cd):
+    """The heads with int8 vocab and pointer matrices and their scales
+    ("s"), as `_head_mm` takes them."""
+    heads = dict(heads)
+    for h in ("vocab", "pointer"):
+        w, s = _weight_form(heads[h]["w"], cd, True)
+        heads[h] = {**heads[h], "w": w, "s": s}
+    return heads
+
+
+def _decode_weights(dec, L, cd, weight_quant):
+    """Per layer, the decode loop's products as (weight, column scales or
+    None, bias in the compute dtype), cast once rather than at every step:
+    "qkv" (the fused QKV, quantized from the f32 concatenation, or the
+    int8 blocks and scales of pre-quantized q/k/v concatenated:
+    per-column quantization commutes with concatenating columns), "wo",
+    "cwq", "cwo", "w1", "w2"."""
+    out = []
+    for sa, ca, f in zip(*(_layers(dec[n], L)
+                           for n in ("self_attn", "cross_attn", "ffn"))):
+        qkv = ("wq", "wk", "wv")
+        if _is_prequantized(sa["wq"]):
+            w, s = (torch.cat([sa[k]["q"] for k in qkv], dim=1),
+                    torch.cat([sa[k]["s"] for k in qkv]))
+        else:
+            w, s = _weight_form(torch.cat([sa[k] for k in qkv], dim=1), cd,
+                                weight_quant)
+        bqkv = torch.cat([sa["bq"], sa["bk"], sa["bv"]]).to(cd)
+        out.append({"qkv": (w, s, bqkv), **{
+            name: (*_weight_form(blk[wk], cd, weight_quant), blk[bk].to(cd))
+            for name, blk, wk, bk in (("wo", sa, "wo", "bo"),
+                                      ("cwq", ca, "wq", "bq"),
+                                      ("cwo", ca, "wo", "bo"),
+                                      ("w1", f, "w1", "b1"),
+                                      ("w2", f, "w2", "b2"))}})
+    return out
 
 
 class FusedDecode:
@@ -514,6 +695,63 @@ class FusedDecode:
         n = _run_steps(self.step, self.dims.max_output_length, early_exit,
                        self.done, self.output, self.attach)
         return {"samples": self.output, "attach": self.attach, "num_steps": n}
+
+
+@torch.no_grad()
+def greedy_decode_nocache(params, batch: dict, dims: ModelDims,
+                          compute_dtype=torch.bfloat16, early_exit=True):
+    """Greedy decode with no KV cache (JAX `decode.greedy_decode_nocache`,
+    the reference's eval loop): each step embeds the whole prefix and runs
+    the full decoder stack over S positions, keys past step t masked, and
+    samples row t. The parity oracle of the cached paths and the baseline
+    a benchmark measures them against. The encoder runs `flash_attention`;
+    the host reads the done flags every CHECK_EVERY steps."""
+    cd = compute_dtype
+    S = dims.max_output_length
+    inputs = {k: v for k, v in batch.items() if k.startswith("input")}
+    memory = encode(params, inputs, dims, compute_dtype=cd, flash=True)
+    dev = memory.device
+    B = memory.shape[0]
+    struct = torch.as_tensor(pointer_structure_mask(dims), device=dev)
+    cross_bias = torch.where(inputs["input_mask"], NEG_INF, 0.0).float()[
+        :, None, None, :]
+    pos = torch.arange(S, device=dev)
+    causal = torch.where(pos[None, :] <= pos[:, None], 0.0, NEG_INF)[None,
+                                                                    None]
+    output = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    attach = torch.full((B, S), -1, dtype=torch.int32, device=dev)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+
+    def step(t):
+        # rows past t are computed from a garbage prefix; they are masked
+        # as keys and never read
+        x = embed_output(params, output[:, :S - 1], dims)
+        prefix = torch.where(pos <= t, 0.0, NEG_INF)[None, None, None, :]
+        hiddens = decode_stack(params, x, memory, causal + prefix, cross_bias,
+                               dims, compute_dtype=cd).float()
+        _mixed_sample(params["heads"], dims, struct, pos, hiddens[:, t],
+                      hiddens, output, attach, done, t)
+
+    n = _run_steps(step, S, early_exit, done, output, attach)
+    return {"samples": output, "attach": attach, "num_steps": n}
+
+
+def eval_step(params, batch: dict, dims: ModelDims,
+              compute_dtype=torch.bfloat16) -> dict:
+    """The reference's eval step (JAX `decode.eval_step`): greedy decode
+    (the default path) at the batch's kv bucket, then the host parse.
+    batch: input streams and `output_value` as tensors on one device.
+    Returns numpy samples/attach, num_steps and per-row (P, 6) lists
+    `predicts` / `groundtruths`."""
+    inputs = {k: v for k, v in batch.items() if k.startswith("input")}
+    out = greedy_decode(params, inputs, dims, compute_dtype=compute_dtype,
+                        kv_bucket=pick_kv_bucket(inputs["input_mask"]))
+    samples = out["samples"].cpu().numpy()
+    gts = np.asarray(batch["output_value"].cpu())
+    return {"samples": samples, "attach": out["attach"].cpu().numpy(),
+            "num_steps": int(out["num_steps"]),
+            "predicts": [parse_sequence(r, dims) for r in samples],
+            "groundtruths": [parse_sequence(r, dims) for r in gts]}
 
 
 def pick_kv_bucket(input_mask, quantum: int = 128) -> int:

@@ -1,21 +1,28 @@
-"""Online serving over the port's greedy decode.
+"""Online serving over the port's decode: dynamic batching, a bucket
+ladder and an HTTP front end.
 
-Ports the serving half of `plankassembly_tpu/serving.py` and the serving
-contract of `plankassembly_tpu/export.py` (`serving_meta`, `pad_request`):
+Ports `plankassembly_tpu/serving.py` and the serving contract of
+`plankassembly_tpu/export.py` (`serving_meta`, `pad_request`):
 
 - `pack_info_dict` packs one info-JSON request (`lines`, or the `svgs`
   GeoJSON linestrings) into the model's input streams;
 - `make_live_backend` turns a loaded checkpoint into a backend callable
-  with the (batch, bucket) serving contract;
+  with the (batch, bucket) serving contract, greedy (`cross_impl`, "auto"
+  by default) or beam search (`beam`);
 - `BatchingServer` multiplexes concurrent single-sample requests onto that
   backend: its worker drains the queue up to `batch` rows or `max_wait_ms`
   after the first arrival, runs one decode, and fans the rows back out;
+- `BucketRouter` sends each request to the smallest bucket of a ladder of
+  servers that fits its real tokens;
+- `make_http_server` exposes a server or a router over stdlib HTTP
+  (`POST /v1/reconstruct`, `GET /healthz`, `GET /meta`);
 - `postprocess_prediction` turns a decoded row into planks + attachments.
 
-Requests of the sideface modality are not ported yet.
+Requests of the sideface modality (`with_type=False`) are not ported yet.
 """
 from __future__ import annotations
 
+import json
 import queue
 import threading
 import time
@@ -23,11 +30,17 @@ import time
 import numpy as np
 import torch
 
+from plankassembly_tpu_torch.beam import beam_decode
 from plankassembly_tpu_torch.config import ModelDims
 from plankassembly_tpu_torch.data import geometry as geo
 from plankassembly_tpu_torch.data.packing import pack_input_sequence
-from plankassembly_tpu_torch.decode import greedy_decode, parse_sequence
+from plankassembly_tpu_torch.decode import (
+    _is_prequantized, greedy_decode, parse_sequence,
+)
 from plankassembly_tpu_torch.device import resolve_device
+
+SIDEFACE_TODO = ("sideface requests (with_type=False) are not ported yet "
+                 "(ROADMAP.md §1, item 4)")
 
 _INPUT_DTYPES = {
     "input_value": np.int32,
@@ -39,16 +52,20 @@ _INPUT_DTYPES = {
 }
 
 
-def serving_meta(dims: ModelDims, *, batch: int, bucket: int,
-                 compute_dtype=torch.bfloat16, device="cuda") -> dict:
+def serving_meta(dims: ModelDims, *, batch: int, bucket: int, beam: int = 0,
+                 compute_dtype=torch.bfloat16, device="cuda",
+                 weight_quant: bool = False, with_type: bool = True) -> dict:
     """The serving contract header (`plankassembly_tpu/export.py:50`) of
-    a greedy, early-exiting backend for line-drawing requests."""
+    an early-exiting backend for line-drawing requests."""
+    if not with_type:
+        raise NotImplementedError(SIDEFACE_TODO)
     return {
         "batch": batch,
         "bucket": bucket,
-        "beam": 0,
+        "beam": beam,
         "platforms": [str(device)],
         "early_exit": True,
+        "weight_quant": bool(weight_quant),
         "with_type": True,
         "compute_dtype": str(compute_dtype).replace("torch.", ""),
         "input_keys": sorted(_INPUT_DTYPES),
@@ -91,11 +108,13 @@ def pad_request(batch: dict, meta: dict) -> tuple[dict, int]:
     return padded, rows
 
 
-def pack_info_dict(info: dict, cfg) -> dict:
+def pack_info_dict(info: dict, cfg, with_type: bool = True) -> dict:
     """Pack one prepare_info-contract dict (`lines`/`views`/`types`, or
     raw `svgs` GeoJSON linestrings in place of `lines`, whose bounding
-    boxes are the lines) into the model's input streams. (The sideface
-    modality's requests are not ported yet.)"""
+    boxes are the lines) into the model's input streams. with_type=False,
+    the sideface modality, is not ported yet and raises."""
+    if not with_type:
+        raise NotImplementedError(SIDEFACE_TODO)
     if "lines" in info:
         lines = np.array(info["lines"], dtype=np.float64)
     else:
@@ -117,30 +136,43 @@ def postprocess_prediction(sample_row, attach_row, dims: ModelDims):
     return pred, attach
 
 
-def make_live_backend(params, cfg, *, batch: int, bucket: int,
+def make_live_backend(params, cfg, *, batch: int, bucket: int, beam: int = 0,
                       compute_dtype=torch.bfloat16, device=None,
-                      cross_impl: str = "persistent"):
+                      cross_impl: str = "auto", with_type: bool = True):
     """A checkpoint-backed backend with the serving contract. Returns
-    (backend callable, meta dict). It decodes with int8 cross K/V
-    (`kv_quant=True`) by the decode path `cross_impl` names
-    (`decode.decode_from_memory`).
+    (backend callable, meta dict). beam >= 2 decodes by beam search of
+    that width (`beam.beam_decode`); otherwise greedily with int8 cross
+    K/V (`kv_quant=True`) by the decode path `cross_impl` names
+    (`decode.decode_from_memory`; "auto" takes the persistent kernels on
+    a GPU in their batch band). Weights from
+    `decode.quantize_decoder_weights` decode with int8 weights.
 
     Unlike the JAX backend, which compiles for a fixed batch, this decodes
     only the request's real rows after `pad_request` validates and pads
     it: every row decodes independently, so the padding rows would change
-    nothing but the time taken."""
+    nothing but the time taken. Backends on one device may be called from
+    several threads at once (a `BucketRouter`'s servers)."""
     dev = resolve_device(device)
     dims = ModelDims.from_config(cfg)
-    meta = serving_meta(dims, batch=batch, bucket=bucket,
-                        compute_dtype=compute_dtype, device=dev)
+    meta = serving_meta(dims, batch=batch, bucket=bucket, beam=beam,
+                        compute_dtype=compute_dtype, device=dev,
+                        weight_quant=_is_prequantized(
+                            params["decoder"]["self_attn"]["wq"]),
+                        with_type=with_type)
+
+    def decode(inputs):
+        if beam >= 2:
+            return beam_decode(params, inputs, dims, num_beams=beam,
+                               compute_dtype=compute_dtype)
+        return greedy_decode(params, inputs, dims,
+                             compute_dtype=compute_dtype, kv_bucket=bucket,
+                             kv_quant=True, cross_impl=cross_impl)
 
     def backend(request: dict) -> dict:
         padded, rows = pad_request(request, meta)
         inputs = {k: torch.from_numpy(v[:rows]).to(dev)
                   for k, v in padded.items()}
-        out = greedy_decode(params, inputs, dims,
-                            compute_dtype=compute_dtype, kv_bucket=bucket,
-                            kv_quant=True, cross_impl=cross_impl)
+        out = decode(inputs)
         return {"samples": out["samples"].cpu().numpy(),
                 "attach": out["attach"].cpu().numpy(),
                 "num_steps": np.asarray(out["num_steps"])}
@@ -244,3 +276,124 @@ class BatchingServer:
                                      else batch_steps)
                 slot["batched_rows"] = len(items)
                 done.set()
+
+
+class BucketRouter:
+    """Route each request to the smallest serving bucket that fits it.
+
+    The serving analogue of the eval loop's per-batch kv bucket: a small
+    ladder of servers (e.g. buckets 512 / 768 / 1152) with requests routed
+    by their real token count, so inputs longer than the smallest bucket
+    are served without every request paying the largest one's
+    cross-attention. Exposes the submit()/meta/close() surface of
+    BatchingServer, so the HTTP front end treats them alike; an answer
+    carries the bucket that served it (`bucket`)."""
+
+    def __init__(self, servers: list[BatchingServer]):
+        if not servers:
+            raise ValueError("BucketRouter needs at least one server")
+        self.servers = sorted(servers, key=lambda s: s.meta["bucket"])
+        buckets = [s.meta["bucket"] for s in self.servers]
+        if len(set(buckets)) != len(buckets):
+            raise ValueError(f"duplicate buckets in the ladder: {buckets}")
+        for key in ("token_pad", "token_end", "input_keys", "with_type",
+                    "max_output_length", "num_output_dof"):
+            vals = {json.dumps(s.meta.get(key), sort_keys=True)
+                    for s in self.servers}
+            if len(vals) != 1:
+                raise ValueError(
+                    f"bucket ladder mixes incompatible programs: {key} "
+                    f"differs across backends")
+        self.meta = dict(self.servers[-1].meta)  # the widest contract
+        self.meta["buckets"] = buckets
+
+    @property
+    def batches_run(self):
+        return sum(s.batches_run for s in self.servers)
+
+    @property
+    def rows_served(self):
+        return sum(s.rows_served for s in self.servers)
+
+    def submit(self, sample: dict, timeout: float = 300.0) -> dict:
+        n_real = int((~np.asarray(sample["input_mask"], bool)).sum())
+        for server in self.servers:  # real tokens form a prefix (packing)
+            if n_real <= server.meta["bucket"]:
+                out = server.submit(sample, timeout=timeout)
+                out["bucket"] = server.meta["bucket"]
+                return out
+        raise ValueError(
+            f"request has {n_real} real tokens; largest bucket in the "
+            f"ladder is {self.servers[-1].meta['bucket']} — serve it with a "
+            f"larger bucket")
+
+    def close(self):
+        for s in self.servers:
+            s.close()
+
+
+def make_http_server(server, cfg, dims: ModelDims, port: int = 0):
+    """A stdlib ThreadingHTTPServer on 127.0.0.1 over a BatchingServer or
+    a BucketRouter: POST /v1/reconstruct (an info JSON in, planks and
+    attachments out), GET /healthz, GET /meta. A request that cannot be
+    served (a ValueError: too long, malformed numbers) answers 400, an
+    unknown route 404, any other failure 500; the server keeps running.
+    The caller runs `serve_forever` and, at the end, `shutdown`."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    def reconstruct(info: dict) -> dict:
+        sample = pack_info_dict(info, cfg,
+                                with_type=server.meta.get("with_type", True))
+        t0 = time.perf_counter()
+        row = server.submit({k: v for k, v in sample.items()
+                             if k.startswith("input")})
+        pred, attach = postprocess_prediction(row["samples"], row["attach"],
+                                              dims)
+        resp = {
+            "name": info.get("name", "sample"),
+            "prediction": pred.tolist(),
+            "attach": attach,
+            "num_steps": row["num_steps"],
+            "batched_rows": row["batched_rows"],
+            "latency_ms": round((time.perf_counter() - t0) * 1e3, 1),
+        }
+        if "bucket" in row:  # a BucketRouter names the bucket it took
+            resp["bucket"] = row["bucket"]
+        return resp
+
+    class Handler(BaseHTTPRequestHandler):
+        def _send(self, code: int, obj: dict):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._send(200, {"ok": True,
+                                 "batches_run": server.batches_run,
+                                 "rows_served": server.rows_served})
+            elif self.path == "/meta":
+                self._send(200, server.meta)
+            else:
+                self._send(404, {"error": f"no route {self.path}"})
+
+        def do_POST(self):
+            if self.path != "/v1/reconstruct":
+                self._send(404, {"error": f"no route {self.path}"})
+                return
+            try:
+                n = int(self.headers.get("Content-Length", "0"))
+                info = json.loads(self.rfile.read(n).decode())
+                self._send(200, reconstruct(info))
+            except ValueError as e:
+                self._send(400, {"error": str(e)})
+            except Exception as e:  # noqa: BLE001 — the server stays up
+                self._send(500, {"error": f"{type(e).__name__}: {e}"})
+
+        def log_message(self, fmt, *args):  # quiet by default
+            pass
+
+    return ThreadingHTTPServer(("127.0.0.1", port), Handler)

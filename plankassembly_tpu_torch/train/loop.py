@@ -9,9 +9,11 @@ Differences from the JAX trainer:
 - with `trainer.fused_attention`, attention runs the fused kernels at
   every batch size on a CUDA device (the JAX trainer takes its kernel only
   on a TPU), and their plain versions on the CPU;
-- validation and test decode with the port's `greedy_decode`, which has
-  the semantics of the JAX `decode_impl: persistent` (int8 cross K/V, bf16
-  self K/V); every other `decode_impl` raises;
+- validation and test decode as the JAX trainer does, by
+  `trainer.decode_impl` ("auto", "xla", "mxu", "kernel", "fused",
+  "persistent", or "beam<K>" for beam search), with int8 cross K/V where
+  `trainer.kv_quant` asks for it; "auto" is the full-precision "mxu" path
+  on a GPU unless `kv_quant` is set;
 - checkpoints are `torch.save` files (params, Adam state, step) beside the
   same `.meta.json`, not orbax directories;
 - the augmentation RNG is a `np.random.RandomState(seed_everything)`, not
@@ -30,8 +32,9 @@ import torch
 from plankassembly_tpu_torch.config import Config, ModelDims, write_hparams_yaml
 from plankassembly_tpu_torch.data.line_data import LineDataset
 from plankassembly_tpu_torch.data.loader import DataLoader, parse_splits_list
+from plankassembly_tpu_torch.beam import beam_decode
 from plankassembly_tpu_torch.decode import (
-    greedy_decode, parse_sequence, pick_kv_bucket,
+    IMPLS, greedy_decode, parse_sequence, pick_kv_bucket,
 )
 from plankassembly_tpu_torch.device import resolve_device
 from plankassembly_tpu_torch.metrics import (
@@ -45,10 +48,17 @@ from plankassembly_tpu_torch.utils.profiling import StepTimer
 
 PARALLEL_TODO = ("multi-device training is not ported yet (ROADMAP.md §1, "
                  "'Parallel')")
-DECODE_TODO = ("the port decodes with decode_impl 'persistent' semantics "
-               "only (int8 cross K/V, bf16 self K/V); the full-precision and "
-               "other decode options are not ported yet (ROADMAP.md §1, "
-               "'Decode options')")
+
+
+def beam_width(decode_impl: str) -> int:
+    """K of a "beam<K>" decode_impl, 0 for a greedy one; raises on a name
+    that is neither."""
+    if decode_impl.startswith("beam") and decode_impl[4:].isdigit():
+        return int(decode_impl[4:])
+    if decode_impl not in IMPLS:
+        raise ValueError(f"unknown trainer.decode_impl {decode_impl!r}; one "
+                         f"of {IMPLS} or beam<K>")
+    return 0
 
 
 class MetricsLogger:
@@ -97,10 +107,7 @@ class Trainer:
             raise NotImplementedError(
                 f"trainer.devices={tc.devices}, strategy={tc.strategy!r}: "
                 f"{PARALLEL_TODO}")
-        if tc.decode_impl != "persistent":
-            raise NotImplementedError(
-                f"trainer.decode_impl={tc.decode_impl!r}: {DECODE_TODO}; "
-                "set trainer.decode_impl persistent")
+        self.num_beams = beam_width(tc.decode_impl)
         self.cfg = cfg
         self.dims = ModelDims.from_config(cfg)
         self.compute_dtype = compute_dtype
@@ -232,11 +239,20 @@ class Trainer:
     def _decode_batch(self, state: TrainState, batch: dict):
         arrays = _to_device(batch, self.device)
         inputs = {k: v for k, v in arrays.items() if k.startswith("input")}
-        bucket = pick_kv_bucket(batch["input_mask"],
-                                quantum=self.cfg.trainer.kv_quantum)
+        tc = self.cfg.trainer
+        bucket = pick_kv_bucket(batch["input_mask"], quantum=tc.kv_quantum)
+        if self.num_beams:
+            out = beam_decode(state.params, inputs, self.dims,
+                              num_beams=self.num_beams,
+                              compute_dtype=self.compute_dtype,
+                              kv_bucket=bucket)
+            return arrays, out
+        # kv_quant False is the config's default, not a request for full
+        # precision: None keeps "persistent" from warning on every batch
         out = greedy_decode(state.params, inputs, self.dims,
                             compute_dtype=self.compute_dtype,
-                            kv_bucket=bucket)
+                            kv_bucket=bucket, kv_quant=tc.kv_quant or None,
+                            cross_impl=tc.decode_impl)
         return arrays, out
 
     def validate(self, state: TrainState) -> tuple[float, float, float]:

@@ -71,7 +71,8 @@ def test_greedy_decode_f32_token_exact_vs_jax_xla(kv, end, early_exit):
         self_quant=False, cross_impl="xla")
     tparams, tbatch = _port(params, batch)
     got = greedy_decode(tparams, tbatch, ModelDims.from_config(cfg),
-                        compute_dtype=torch.float32, early_exit=early_exit)
+                        compute_dtype=torch.float32, early_exit=early_exit,
+                        cross_impl="persistent")
     np.testing.assert_array_equal(got["samples"].numpy(),
                                   np.asarray(ref["samples"]))
     np.testing.assert_array_equal(got["attach"].numpy(),
@@ -125,7 +126,8 @@ def test_kv_bucket_crop_and_pad_match_jax():
             compute_dtype=jnp.float32, kv_bucket=bucket, kv_quant=True,
             self_quant=False, cross_impl="xla")
         got = greedy_decode(tparams, tbatch, dims,
-                            compute_dtype=torch.float32, kv_bucket=bucket)
+                            compute_dtype=torch.float32, kv_bucket=bucket,
+                            cross_impl="persistent")
         np.testing.assert_array_equal(got["samples"].numpy(),
                                       np.asarray(ref["samples"]))
         assert got["num_steps"] == int(ref["num_steps"])

@@ -193,7 +193,7 @@ def test_fused_rejects_gqa_and_unchunkable_memory():
 def test_unknown_cross_impl_and_persistent_flags():
     cfg, _, _, _, _, tparams, tmemory, tbatch = _memory(0, "none")
     dims = ModelDims.from_config(cfg)
-    for bad in ("auto", "kernel-interpret", "einsum"):
+    for bad in ("kernel-interpret", "einsum"):
         with pytest.raises(ValueError, match="unknown cross_impl"):
             port_decode.decode_from_memory(tparams, tmemory,
                                            tbatch["input_mask"], dims,
@@ -203,12 +203,14 @@ def test_unknown_cross_impl_and_persistent_flags():
     with pytest.warns(UserWarning, match="ignored"):
         port_decode.decode_from_memory(tparams, tmemory, tbatch["input_mask"],
                                        dims, compute_dtype=torch.float32,
-                                       kv_quant=False)
+                                       kv_quant=False,
+                                       cross_impl="persistent")
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         port_decode.decode_from_memory(tparams, tmemory, tbatch["input_mask"],
                                        dims, compute_dtype=torch.float32,
-                                       kv_quant=True)
+                                       kv_quant=True,
+                                       cross_impl="persistent")
 
 
 @pytest.mark.parametrize("impl", ["kernel", "fused"])

@@ -32,6 +32,12 @@ import plankassembly_tpu_torch.ops.persistent_decode
 import plankassembly_tpu_torch.ops.attention
 import plankassembly_tpu_torch.ops.cross_decode
 import plankassembly_tpu_torch.ops.fused_decode
+import plankassembly_tpu_torch.beam
+import plankassembly_tpu_torch.predict
+import plankassembly_tpu_torch.serve
+import plankassembly_tpu_torch.evaluate
+import plankassembly_tpu_torch.io.svg
+import plankassembly_tpu_torch.io.mesh
 from plankassembly_tpu_torch.config import config_from_hparams_file
 cfg = config_from_hparams_file(sys.argv[1])
 leaked = sorted(m for m in sys.modules if sys.modules[m] is not None and (

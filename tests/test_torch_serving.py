@@ -173,7 +173,7 @@ def test_batching_server_equals_direct_decode():
     dims = ModelDims.from_config(cfg)
     bucket = 32
     direct = greedy_decode(tparams, tbatch, dims, compute_dtype=torch.float32,
-                           kv_bucket=bucket)
+                           kv_bucket=bucket, kv_quant=True)
     backend, meta = serving.make_live_backend(
         tparams, cfg, batch=4, bucket=bucket, compute_dtype=torch.float32,
         device="cpu")

@@ -143,7 +143,7 @@ def test_fit_checkpoint_test_and_serve(dataset_dir, tmp_path):
 
 def test_fit_from_released_npz_and_guards(dataset_dir, tmp_path):
     """A released .npz starts a fit with a fresh Adam state; multi-device
-    settings and unported decode options raise instead of running."""
+    settings and unknown decode options raise instead of running."""
     cfg = make_cfg(dataset_dir, tmp_path / "logs")
     trainer = Trainer(cfg, compute_dtype=torch.float32, device="cpu")
     path = tmp_path / "tiny.npz"
@@ -156,12 +156,18 @@ def test_fit_from_released_npz_and_guards(dataset_dir, tmp_path):
         state.params["heads"]["vocab"]["w"].detach().numpy(),
         flat["heads/vocab/w"])
     for bad, match in ((dict(devices=2), "Parallel"),
-                       (dict(strategy="dp+tp"), "Parallel"),
-                       (dict(decode_impl="auto"), "Decode options"),
-                       (dict(decode_impl="beam4"), "Decode options")):
+                       (dict(strategy="dp+tp"), "Parallel")):
         with pytest.raises(NotImplementedError, match=match):
             Trainer(make_cfg(dataset_dir, tmp_path / "l2", **bad),
                     device="cpu")
+    # every decode_impl of the JAX trainer is taken; an unknown one raises
+    for impl, beams in (("auto", 0), ("beam4", 4)):
+        tr = Trainer(make_cfg(dataset_dir, tmp_path / "l2",
+                              decode_impl=impl), device="cpu")
+        assert tr.num_beams == beams
+    with pytest.raises(ValueError, match="decode_impl"):
+        Trainer(make_cfg(dataset_dir, tmp_path / "l2", decode_impl="beam"),
+                device="cpu")
 
 
 def _write_yaml(path, root, log_root):
