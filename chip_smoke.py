@@ -98,12 +98,39 @@ instead of hanging, each printing one line (or a few) when it ends:
    8, 24 and 32, in bf16 and f32, scored against the JAX reference's
    golden (plankassembly_tpu_torch/fixtures/serve64_mha_jax_golden.npz);
    then the last 32 programs through each path's kernels and its plain
-   versions on the same memory; launches of every kernel on each path.
+   versions on the same memory; launches of every kernel on each path;
+13. sideface_serve: checkpoints/gqa_sideface_ep119.npz serves the 64
+   fixture drawings as sideface requests (their `svgs` the two-point
+   linestrings of their lines; side faces extracted, no line-type stream)
+   through make_live_backend(with_type=False) + BatchingServer, as
+   requests of 8, 24 and 32 at the golden's buckets, bf16 and f32, scored
+   against the JAX reference's golden
+   (plankassembly_tpu_torch/fixtures/serve64_sideface_jax_golden.npz):
+   F1, identical programs, token agreement, zero-face drawings, ms per
+   request, launches of flash_attention and persistent_greedy_decode;
+   both kernels against their plain versions at the sideface shape with
+   a drawing of no side face (one real key) in the largest request; then
+   the requests and that drawing POSTed through make_http_server over a
+   BucketRouter of sideface backends, each answered by the smallest
+   bucket that fits its packed face tokens;
+14. data_fit: the port's sideface CLI (`trainer_sideface fit`) on
+   configs/train_synthetic_sideface_gqa.yaml as it stands (B=64, dropout
+   0.2, AUG_RATIO 0.1) from init on the training fixture with
+   `trainer.sample_cache` and `trainer.device_data`, validated on the
+   sideface requests: losses, ms per step, val P/R/F1, kernel 3's
+   launches; then the complete-modality fit on
+   configs/train_synthetic_gqa.yaml, the training fixture tiled 4 times
+   (4 steps an epoch), 3 epochs each through the plain DataLoader,
+   `sample_cache` and `device_data`: host-clock ms per step of each, and
+   the device idle share of two device_data steps.
 
-With --phases, only the named phases run, and no result line is printed.
-It then prints the kernels' JSON line, the card's name and power limit,
-and, last, {"ok": true, "device": {...}}. Any failed check exits non-zero
-before that line. Without CUDA it exits non-zero and prints no result.
+Before its closing lines the script prints one summary line per phase
+with that phase's headline numbers, so that they stand in the last lines
+of its output. With --phases, only the named phases run, and no result
+line is printed. It then prints the kernels' JSON line, the card's name
+and power limit, and, last, {"ok": true, "device": {...}}. Any failed
+check exits non-zero before that line. Without CUDA it exits non-zero and
+prints no result.
 """
 import contextlib
 import faulthandler
@@ -124,6 +151,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "checkpoints", "gqa_complete_ep221.npz")
 MHA_CKPT = os.path.join(ROOT, "checkpoints", "mha_complete_ep59.npz")
+SF_CKPT = os.path.join(ROOT, "checkpoints", "gqa_sideface_ep119.npz")
 FIXTURES = os.path.join(ROOT, "plankassembly_tpu_torch", "fixtures")
 DEVICE = "cuda"
 
@@ -135,7 +163,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 BUDGET = {"device": 240, "flash": 180, "decode": 240, "serve": 300,
           "decode_options": 300, "beam": 300, "http": 300,
           "train_kernel": 300, "train_step": 240, "fit": 420,
-          "mha_kernels": 240, "mha_serve": 420}
+          "mha_kernels": 240, "mha_serve": 420, "sideface_serve": 300,
+          "data_fit": 420}
 PHASES = tuple(BUDGET)
 
 # tolerances (the plain versions accumulate in f32 like the kernels; the
@@ -221,6 +250,21 @@ HTTP_BATCH = 16
 HTTP_CLIENTS = 16
 HTTP_F1 = 0.980625
 FUSED_PLAIN_F1_TOL = 0.005     # fused kernels vs their plain versions
+# sideface_serve: bf16 token agreement with the JAX golden (the repo's bar
+# for kernel variants; f32 must give every golden program), the HTTP
+# ladder of sideface backends, and a drawing with no side face (one
+# dangling line: it packs to END and PAD only)
+SF_AGREEMENT = 0.99
+SF_HTTP_BUCKETS = (128, 256)
+NO_FACE = {"name": "no_face", "views": [0], "types": [0],
+           "svgs": ['{"type":"LineString","coordinates":[[0.0,0.0],'
+                    '[0.3,0.0]]}'],
+           "lines": [[0.0, 0.0, 0.3, 0.0]], "coords": [[0.0] * 6],
+           "attach": [[-1] * 6]}
+# data_fit: sideface steps (one an epoch), and the complete fit's timing
+# runs: the fixture tiled TIMING_TILE times, TIMING_EPOCHS epochs
+SF_FIT_EPOCHS = 10
+TIMING_TILE, TIMING_EPOCHS = 4, 3
 
 
 class CheckFailed(Exception):
@@ -234,6 +278,13 @@ def check(ok, what):
 
 def log(*parts):
     print(*parts, flush=True)
+
+
+SUMMARY: dict = {}   # phase -> its headline numbers, printed at the end
+
+
+def note(phase, text):
+    SUMMARY.setdefault(phase, []).append(text)
 
 
 def card_line() -> str:
@@ -811,36 +862,50 @@ def phase_decode(params, dims, batch, gt, bucket):
 
 
 # ---------------------------------------------------------------- phase 4
-def serve(params, cfg, packed, bucket, cd, cross_impl="persistent"):
+def serve(params, cfg, packed, bucket, cd, cross_impl="persistent",
+          with_type=True, buckets=None):
     """All fixture drawings through BatchingServer as requests of
-    REQUESTS programs (each request's programs submitted concurrently).
-    Returns (samples, attach (N, S) numpy, backend stats, wall seconds)."""
+    REQUESTS programs (each request's programs submitted concurrently),
+    at `bucket`, or request r at `buckets[r]` (a backend and server for
+    each). Returns (samples, attach (N, S) numpy, backend stats, wall
+    seconds)."""
     from plankassembly_tpu_torch.serving import (
         BatchingServer, make_live_backend,
     )
 
-    backend, meta = make_live_backend(params, cfg, batch=max(REQUESTS),
-                                      bucket=bucket, compute_dtype=cd,
-                                      device=DEVICE, cross_impl=cross_impl)
-    stats = {"seconds": 0.0, "steps": 0, "calls": 0}
+    stats = {"seconds": 0.0, "steps": 0, "calls": 0, "steps_per_call": [],
+             "ms_per_call": []}
+    servers = {}
 
-    def timed_backend(request):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = backend(request)
-        torch.cuda.synchronize()
-        stats["seconds"] += time.perf_counter() - t0
-        stats["steps"] += int(out["num_steps"])
-        stats["calls"] += 1
-        return out
+    def server_at(b):
+        if b not in servers:
+            backend, meta = make_live_backend(
+                params, cfg, batch=max(REQUESTS), bucket=b, compute_dtype=cd,
+                device=DEVICE, cross_impl=cross_impl, with_type=with_type)
 
-    server = BatchingServer(timed_backend, meta, max_wait_ms=200)
+            def timed_backend(request, backend=backend):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = backend(request)
+                torch.cuda.synchronize()
+                stats["seconds"] += time.perf_counter() - t0
+                stats["steps"] += int(out["num_steps"])
+                stats["steps_per_call"].append(int(out["num_steps"]))
+                stats["ms_per_call"].append(
+                    round((time.perf_counter() - t0) * 1e3, 1))
+                stats["calls"] += 1
+                return out
+            servers[b] = BatchingServer(timed_backend, meta, max_wait_ms=200)
+        return servers[b]
+
     rows = [None] * len(packed)
     t0 = time.perf_counter()
     try:
         first = 0
-        for n in REQUESTS:
-            def ask(i):
+        for r, n in enumerate(REQUESTS):
+            server = server_at(bucket if buckets is None else buckets[r])
+
+            def ask(i, server=server):
                 rows[i] = server.submit(
                     {k: v for k, v in packed[i].items()}, timeout=120)
             threads = [threading.Thread(target=ask, args=(i,))
@@ -853,7 +918,8 @@ def serve(params, cfg, packed, bucket, cd, cross_impl="persistent"):
                   "a request did not come back")
             first += n
     finally:
-        server.close()
+        for server in servers.values():
+            server.close()
     wall = time.perf_counter() - t0
     check(all(r is not None for r in rows), "a request failed")
     samples = np.stack([r["samples"] for r in rows])
@@ -899,6 +965,9 @@ def phase_serve(params, cfg, dims, packed, gt, golden, bucket):
             f"ms over {stats['steps']} steps = "
             f"{stats['seconds'] * 1e3 / stats['steps']:.3f} ms/step; "
             f"launches {counts}")
+        note("serve", f"{name} F1 {f1m:.6f} (golden {gold_f1:.6f}) identical "
+             f"{sum(same)}/{len(same)} "
+             f"{stats['seconds'] * 1e3 / stats['steps']:.3f} ms/step")
         check(abs(f1m - gold_f1) <= SERVE_F1_TOL[name],
               f"serve {name} F1 {f1m} vs golden {gold_f1}")
         check(not attach_bad, f"serve {name}: attach differs from the JAX "
@@ -1586,6 +1655,8 @@ def phase_train_step(params, cfg, train_infos, tmp):
             f"{tol['probe']:g}), key-bias norm/max {worst_bk:.2e} (tol "
             f"{tol['bk']:g}); {ms:.1f} ms (first call of the dtype); "
             f"launches fwd/bwd {launches[tag]}")
+        note("train_step", f"{tag} loss rel {d_loss:.2e} acc {d_acc:.2e} "
+             f"norm {worst_norm:.2e} probe {worst_probe:.2e}")
         check(d_loss <= tol["loss"], f"train_step {tag}: loss")
         check(d_acc <= tol["acc"], f"train_step {tag}: accuracy")
         check(worst_norm <= tol["norm"], f"train_step {tag}: gradient norm")
@@ -1670,6 +1741,8 @@ def phase_fit(train_infos, serve_infos, tmp):
         f"'last' equal {same}, step {restored.step}; wall {wall:.1f} s; "
         f"launches {counts}; device idle share not measured here "
         f"(tools/profile_torch_train.py)")
+    note("fit", f"loss {first5:.4f} -> {last5:.4f} (means of 5), "
+         f"{ms_step:.1f} ms/step, val F1 {val['val/fmeasure']:.4f}")
     check(last5 < first5, "fit: the loss did not fall")
     check(same and restored.step == state.step,
           "fit: the reloaded checkpoint differs")
@@ -2185,6 +2258,9 @@ def phase_mha_serve(params, cfg, dims, packed, golden, bucket, req):
                          f"fused-interpret: identical {sub_same}, attach "
                          f"equal {sub_attach}")
             log(line)
+            note("mha_serve", f"{impl} {name} F1 {f1m:.6f} (golden "
+                 f"{gold_f1:.6f}) agreement {agree:.4f} identical {same:.4f} "
+                 f"{stats['seconds'] * 1e3 / stats['steps']:.3f} ms/step")
             if impl == "kernel":
                 check(abs(f1m - gold_f1) <= MHA_F1_TOL[name],
                       f"mha_serve kernel {name}: F1 {f1m} vs golden {gold_f1}")
@@ -2241,7 +2317,577 @@ def phase_mha_serve(params, cfg, dims, packed, golden, bucket, req):
     return counts
 
 
+# ------------------------------------------------------------ phases 13-14
+def sideface_requests(infos):
+    """The drawings as sideface requests: their `svgs` the two-point
+    linestrings of their lines."""
+    return [{**info, "svgs": [json.dumps(
+        {"type": "LineString", "coordinates": [[a, b], [c, d]]},
+        separators=(",", ":")) for a, b, c, d in info["lines"]]}
+        for info in infos]
+
+
+def _prefix_hidden_err(k_out, p_out, row):
+    """max |hidden| difference of one row over the steps before its first
+    differing token (inputs equal there), and that step count."""
+    ks, ps = k_out["samples"][row].cpu(), p_out["samples"][row].cpu()
+    diff = torch.nonzero(ks != ps)
+    n = int(diff[0]) if diff.numel() else ks.numel()
+    if n == 0:
+        return 0.0, 0
+    return (k_out["hidden"][row, :n].float()
+            - p_out["hidden"][row, :n].float()).abs().max().item(), n
+
+
+def sideface_kernel_checks(params, dims, cfg, packed, bucket):
+    """flash_attention and persistent_greedy_decode against their plain
+    versions at the sideface shape: the largest request with a drawing of
+    no side face (one real key: END) as its last row."""
+    from plankassembly_tpu_torch.decode import _pad_or_crop
+    from plankassembly_tpu_torch.models.model import encode
+    from plankassembly_tpu_torch.ops import persistent_decode as PD
+    from plankassembly_tpu_torch.serving import pack_info_dict
+
+    rows = packed[-max(REQUESTS):-1] + [
+        pack_info_dict(NO_FACE, cfg, with_type=False)]
+    lengths = np.array([int((~p["input_mask"]).sum()) for p in rows])
+    check(lengths[-1] == 1, "the zero-face drawing has more than one key")
+    B, Hkv = len(rows), dims.kv_heads
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        r = flash_case(B, dims.num_head, Hkv, bucket, lengths, False, dtype,
+                       seed=11, timing=True if dtype == torch.bfloat16
+                       else "kernel")
+        tag = f"sideface flash B={B} L={bucket} {str(dtype)[6:]}"
+        log(f"{tag} (a row with one key): max_abs_err {r['err']:.3e} (tol "
+            f"{FLASH_TOL[dtype]:g})" + (
+                f", err over the TRAIN_KERNEL_TOL bound {r['elem']:.3f}; "
+                f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+                f"sdpa {r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} "
+                f"ms ({r['bound_by']})" if "elem" in r else
+                f"; kernel {r['ms']:.3f} ms"))
+        check(r["err"] <= FLASH_TOL[dtype], f"{tag} disagrees")
+        check(r.get("elem", 0.0) <= 1.0, f"{tag} disagrees element by "
+              f"element")
+        out[("flash", str(dtype)[6:])] = r
+    batch = _pad_or_crop(_stack(rows, range(B)), bucket, dims)
+    mask = batch["input_mask"]
+    for name, cd in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        with torch.no_grad():
+            memory = encode(params, batch, dims, compute_dtype=cd, flash=True)
+        k_out = PD.persistent_greedy_decode(params, memory, mask, dims,
+                                            compute_dtype=cd)
+        p_out = PD.greedy_decode_reference(params, memory, mask, dims,
+                                           compute_dtype=cd)
+        agree = _agreement(k_out["samples"].cpu().numpy(),
+                           p_out["samples"].cpu().numpy(), dims.end)
+        errs = [_prefix_hidden_err(k_out, p_out, i) for i in range(B)]
+        zero_err, zero_n = errs[-1]
+        rest = max(e for e, _ in errs[:-1])
+        zero_same = torch.equal(k_out["samples"][-1], p_out["samples"][-1])
+        log(f"sideface decode {name} B={B} Li={bucket}: token agreement "
+            f"with the plain version {agree:.4f}; the zero-face row: tokens "
+            f"identical {zero_same}, hidden max_abs_err {zero_err:.3e} over "
+            f"its first {zero_n} steps (the other rows' worst {rest:.3e}); "
+            f"num_steps kernel {k_out['num_steps']} plain "
+            f"{p_out['num_steps']}")
+        check(agree >= (0.99 if name == "f32" else 0.9),
+              f"sideface decode {name}: token agreement {agree}")
+        check(zero_err <= RAGGED_HIDDEN_FACTOR * max(rest, 1e-6),
+              f"sideface decode {name}: the zero-face row's hidden error "
+              f"{zero_err} against {rest} elsewhere")
+        if name == "f32":
+            check(zero_same, "sideface decode f32: the zero-face row's "
+                  "tokens differ from the plain version")
+        out[("decode", name)] = {"agreement": agree, "zero_err": zero_err,
+                                 "zero_same": zero_same}
+        del memory
+    return out
+
+
+def sideface_http(params, cfg, dims, infos):
+    """A BucketRouter of sideface backends (SF_HTTP_BUCKETS, batch
+    HTTP_BATCH, "auto", bf16) behind make_http_server; every request and
+    the zero-face drawing POSTed from HTTP_CLIENTS threads: each answered
+    by the smallest bucket that fits its packed face tokens, equal to the
+    decode of the batch its server ran, repeated one call at a time."""
+    import urllib.error
+    import urllib.request
+
+    from plankassembly_tpu_torch.decode import greedy_decode
+    from plankassembly_tpu_torch.serving import (
+        BatchingServer, BucketRouter, make_http_server, make_live_backend,
+        pack_info_dict, postprocess_prediction,
+    )
+
+    infos = list(infos) + [NO_FACE]
+    calls, servers = [], []
+    for bucket in SF_HTTP_BUCKETS:
+        backend, meta = make_live_backend(params, cfg, batch=HTTP_BATCH,
+                                          bucket=bucket, device=DEVICE,
+                                          with_type=False)
+
+        def recorded(request, backend=backend, bucket=bucket):
+            out = backend(request)
+            calls.append((bucket, request, out))
+            return out
+        servers.append(BatchingServer(recorded, meta, max_wait_ms=20))
+    router = BucketRouter(servers)
+    httpd = make_http_server(router, cfg, dims, port=0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def post(body):
+        req = urllib.request.Request(base + "/v1/reconstruct",
+                                     data=json.dumps(body).encode())
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.loads(r.read().decode())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read().decode())
+
+    answers = [None] * len(infos)
+    try:
+        t0 = time.perf_counter()
+
+        def client(k):
+            for i in range(k, len(infos), HTTP_CLIENTS):
+                answers[i] = post(infos[i])
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(HTTP_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=240)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads),
+              "sideface http: a client did not come back")
+        no_svgs = post({k: v for k, v in infos[0].items() if k != "svgs"})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        router.close()
+    check(all(a is not None and a[0] == 200 for a in answers),
+          f"sideface http: a request failed: "
+          f"{[a for a in answers if a and a[0] != 200][:2]}")
+    packed = [pack_info_dict(i, cfg, with_type=False) for i in infos]
+    tokens = [int((~p["input_mask"]).sum()) for p in packed]
+    want = [min(b for b in SF_HTTP_BUCKETS if b >= n) for n in tokens]
+    got = [a[1]["bucket"] for a in answers]
+    # what a router by line count would need: 4 tokens a line and END
+    beyond = sum(4 * len(i["lines"]) + 1 > max(SF_HTTP_BUCKETS)
+                 for i in infos)
+    served, direct = {}, {}
+    for bucket, req, out in calls:
+        ref = greedy_decode(params, {k: torch.from_numpy(v).to(DEVICE)
+                                     for k, v in req.items()}, dims,
+                            kv_bucket=bucket, kv_quant=True)
+        rs, ra = ref["samples"].cpu().numpy(), ref["attach"].cpu().numpy()
+        for j, key in enumerate(req["input_value"]):
+            served[(bucket, key.tobytes())] = (out["samples"][j],
+                                               out["attach"][j])
+            direct[(bucket, key.tobytes())] = (rs[j], ra[j])
+    bad = []
+    for i, (ans, p) in enumerate(zip(answers, packed)):
+        key = (want[i], p["input_value"].tobytes())
+        (s, a), (ds, da) = served[key], direct[key]
+        n = len(_upto_end(ds, dims.end))
+        pred, attach = postprocess_prediction(s, a, dims)
+        if not (np.array_equal(s[:n], ds[:n]) and np.array_equal(a[:n], da[:n])
+                and ans[1]["prediction"] == pred.tolist()
+                and ans[1]["attach"] == attach):
+            bad.append(i)
+    rate = len(infos) / wall
+    log(f"sideface http: {len(infos)} requests (one with no side face) "
+        f"from {HTTP_CLIENTS} client threads through a ladder of "
+        f"{SF_HTTP_BUCKETS} (batch {HTTP_BATCH}, auto, bf16) in {wall:.2f} s "
+        f"= {rate:.2f} programs/s on {card_line()}; each bucket's answers "
+        f"{dict(zip(SF_HTTP_BUCKETS, map(got.count, SF_HTTP_BUCKETS)))}, "
+        f"chosen by packed face tokens ({min(tokens)}..{max(tokens)}); "
+        f"{beyond} requests have more line tokens than the largest bucket; "
+        f"answers equal to the one-at-a-time decode of their batch "
+        f"{len(infos) - len(bad)} of {len(infos)}; a request without svgs "
+        f"answered {no_svgs[0]}")
+    check(got == want, "sideface http: an answer names another bucket than "
+          "the smallest that fits its face tokens")
+    check(not bad, f"sideface http: answers differ from the one-at-a-time "
+          f"decode: {bad}")
+    check(no_svgs[0] == 400, f"sideface http: a request without svgs "
+          f"answered {no_svgs[0]}")
+    return {"programs_per_s": rate, "beyond": beyond}
+
+
+def phase_sideface_serve(params, cfg, dims, infos, golden):
+    from plankassembly_tpu_torch.metrics import batch_scores
+    from plankassembly_tpu_torch.serving import (
+        make_live_backend, pack_info_dict,
+    )
+
+    end = dims.end
+    packed = [pack_info_dict(i, cfg, with_type=False) for i in infos]
+    check("input_type" not in packed[0], "sideface: a type stream packed")
+    faces = np.array([(int((~p["input_mask"]).sum()) - 1) // 4
+                      for p in packed])
+    check(tuple(golden["requests"]) == REQUESTS, "sideface golden requests")
+    check(np.array_equal(faces, golden["face_counts"]),
+          "sideface: face counts differ from the JAX golden's")
+    buckets = [int(b) for b in golden["buckets"]]
+    gt = torch.from_numpy(golden["gt_samples"])
+    res = {"zero_face": int((faces == 0).sum()), "buckets": buckets}
+    for name, cd in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        # one untimed call of the largest request first: the checkpoint's
+        # first decode at this dtype and width (weights packed, graph set
+        # up) stays out of the served times
+        backend, _ = make_live_backend(params, cfg, batch=max(REQUESTS),
+                                       bucket=buckets[-1], compute_dtype=cd,
+                                       device=DEVICE, with_type=False)
+        backend({k: np.stack([p[k] for p in packed[-max(REQUESTS):]])
+                 for k in packed[0]})
+        torch.cuda.synchronize()
+        _reset_counts()
+        samples, attach, stats, wall = serve(params, cfg, packed, None, cd,
+                                             cross_impl="auto",
+                                             with_type=False, buckets=buckets)
+        counts = _launch_counts()
+        check(samples.shape == (len(packed), dims.max_output_length),
+              f"sideface samples shape {samples.shape}")
+        prec, rec, f1 = batch_scores(torch.from_numpy(samples), gt)
+        gold = golden[f"samples_{name}"]
+        same = [np.array_equal(_upto_end(a, end), _upto_end(b, end))
+                for a, b in zip(samples, gold)]
+        agree = _agreement(samples, gold, end)
+        attach_bad = [int(i) for i in np.flatnonzero(same) if not
+                      np.array_equal(attach[i, :len(_upto_end(gold[i], end))],
+                                     golden[f"attach_{name}"][i, :len(
+                                         _upto_end(gold[i], end))])]
+        f1m, gold_f1 = f1.mean().item(), float(golden[f"f1_{name}"].mean())
+        ms_req = stats["seconds"] * 1e3 / stats["calls"]
+        ms_step = stats["seconds"] * 1e3 / stats["steps"]
+        log(f"sideface_serve {name}: {len(packed)} programs ({faces.min()}.."
+            f"{faces.max()} faces, {res['zero_face']} with none) in "
+            f"{stats['calls']} batches ({'/'.join(map(str, REQUESTS))}) at "
+            f"buckets {buckets}: P {prec.mean():.6f} R {rec.mean():.6f} F1 "
+            f"{f1m:.6f} vs JAX golden F1 {gold_f1:.6f} (tol "
+            f"{SERVE_F1_TOL[name]}); identical programs {sum(same)} of "
+            f"{len(same)}, token agreement {agree:.4f}, attach equal on "
+            f"identical programs {not attach_bad}; steps per call "
+            f"{stats['steps_per_call']} (golden "
+            f"{golden[f'num_steps_{name}'].tolist()}); {ms_req:.1f} ms per "
+            f"request in the backend (calls {stats['ms_per_call']} ms, after "
+            f"a warm-up call), {ms_step:.3f} ms/step; launches {counts}")
+        check(abs(f1m - gold_f1) <= SERVE_F1_TOL[name],
+              f"sideface_serve {name} F1 {f1m} vs golden {gold_f1}")
+        if name == "f32":
+            check(all(same), f"sideface_serve f32: programs differ from the "
+                  f"golden: {[i for i, x in enumerate(same) if not x]}")
+        check(agree >= SF_AGREEMENT, f"sideface_serve {name}: token "
+              f"agreement with the golden {agree}")
+        check(not attach_bad, f"sideface_serve {name}: attach differs from "
+              f"the golden on identical programs {attach_bad}")
+        check(counts["flash_attention"] > 0
+              and counts["persistent_greedy_decode"] > 0,
+              f"sideface_serve {name}: a kernel did not run: {counts}")
+        res[name] = {"f1": f1m, "golden_f1": gold_f1,
+                     "identical": int(sum(same)), "agreement": agree,
+                     "ms_per_request": ms_req, "ms_per_step": ms_step,
+                     "launches": counts}
+        note("sideface_serve", f"{name} F1 {f1m:.6f} (golden {gold_f1:.6f}) "
+             f"identical {sum(same)}/{len(same)} agreement {agree:.4f} "
+             f"{ms_req:.1f} ms/request {ms_step:.3f} ms/step launches "
+             f"flash {counts['flash_attention']} persistent "
+             f"{counts['persistent_greedy_decode']}")
+    res["kernels"] = sideface_kernel_checks(params, dims, cfg, packed,
+                                            buckets[-1])
+    res["http"] = sideface_http(params, cfg, dims, infos)
+    dec = res["kernels"]
+    note("sideface_serve", f"zero-face drawings {res['zero_face']}, buckets "
+         f"{buckets}; with a zero-face row: decode agreement bf16 "
+         f"{dec[('decode', 'bf16')]['agreement']:.4f} f32 "
+         f"{dec[('decode', 'f32')]['agreement']:.4f}, flash err bf16 "
+         f"{dec[('flash', 'bfloat16')]['err']:.2e}; http "
+         f"{res['http']['programs_per_s']:.2f} programs/s, buckets by face "
+         f"tokens")
+    return res
+
+
+def _fit_ms(log_dir):
+    """(losses, host-clock ms per step over steps 6..n, val record or
+    None) from a run's metrics: each step's log reads its loss, which
+    waits for the device, so the gap between two logs is one step."""
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    steps = [r for r in recs if "train/loss" in r]
+    times = [r["time"] for r in steps]
+    vals = [r for r in recs if "val/fmeasure" in r]
+    return ([r["train/loss"] for r in steps],
+            (times[-1] - times[4]) / (len(times) - 5) * 1e3,
+            vals[-1] if vals else None)
+
+
+class _Epochs:
+    """A loader's batches over as many epochs as asked for."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self.fields = loader.fields
+
+    def __iter__(self):
+        while True:
+            yield from self.loader
+
+
+def device_steps_idle(trainer, state, loader):
+    """(device idle share, device busy ms a step) over two training steps
+    on device-resident data after one more, under the profiler."""
+    it = iter(loader)
+
+    def step():
+        batch = next(it)
+        trainer.device_step_fn(state, loader.fields, batch["idx"],
+                               batch["aug"], batch["pos"], trainer._rng)
+    step()
+    idle, busy, _ = decode_idle_share(lambda: (step(), step()))
+    it.close()
+    return idle, busy / 2
+
+
+def pack_ms(dataset, augment, rows=16):
+    """Host ms to pack one sample from its JSON (with noise and, for the
+    sideface dataset, the side-face extraction of the noisy lines, if
+    `augment`), over the first `rows` samples."""
+    rng = np.random.RandomState(0)
+    t0 = time.perf_counter()
+    for i in range(rows):
+        dataset._pack(i, augment, rng)
+    return (time.perf_counter() - t0) / rows * 1e3
+
+
+def step_copies_ms(loader, reps=10):
+    """(host ms, count) of one step's host-to-device copies on
+    device-resident data (indices, positions, a batch's augmented rows as
+    AUG_RATIO draws them), each pinned and sent as the loader sends it."""
+    idx = np.arange(loader.batch_size)
+    pos, aug = loader._aug_rows(idx)
+    arrays = [idx, pos, *aug.values()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for a in arrays:
+            loader._to_device(a)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3, len(arrays)
+
+
+def phase_data_fit(train_infos, sf_infos, tmp):
+    from plankassembly_tpu_torch import cli
+    from plankassembly_tpu_torch.config import load_config
+    from plankassembly_tpu_torch.data.device_loader import DeviceDataLoader
+    from plankassembly_tpu_torch.data.loader import DataLoader
+    from plankassembly_tpu_torch.ops import attention as A
+    from plankassembly_tpu_torch.ops import flash_train as FT
+    from plankassembly_tpu_torch.train.loop import SidefaceTrainer, Trainer
+
+    card = card_line()
+    root = os.path.join(tmp, "data_fit")
+    os.makedirs(root)
+    splits = {}
+    for split, infos in (("train", train_infos), ("valid", sf_infos),
+                         ("tiled", [dict(i, name=f"{i['name']}_{k}")
+                                    for k in range(TIMING_TILE)
+                                    for i in train_infos])):
+        splits[split] = os.path.join(tmp, f"data_fit_{split}.txt")
+        with open(splits[split], "w") as f:
+            f.write("".join(n + "\n" for n in _unpack_infos(infos, root)))
+    data = {"--model.hparams.ROOT": root,
+            "--model.hparams.DATASETS_VALID": splits["valid"],
+            "--model.hparams.DATASETS_TEST": splits["valid"],
+            "--trainer.log_every_n_steps": "1"}
+
+    # the sideface fit through the port's CLI, device-resident data
+    argv = ["fit", "--config", os.path.join(
+        ROOT, "configs", "train_synthetic_sideface_gqa.yaml"),
+        "--device", DEVICE, "--model.hparams.DATASETS_TRAIN", splits["train"],
+        "--trainer.max_epochs", str(SF_FIT_EPOCHS),
+        "--trainer.check_val_every_n_epoch", str(SF_FIT_EPOCHS),
+        "--trainer.default_root_dir", os.path.join(tmp, "sf_runs"),
+        "--trainer.sample_cache", "true", "--trainer.device_data", "true"]
+    for k, v in data.items():
+        argv += [k, v]
+    log("data_fit: python -m plankassembly_tpu_torch.trainer_sideface "
+        + " ".join(argv[:3]) + " ... --trainer.sample_cache true "
+        f"--trainer.device_data true (B=64, dropout 0.2, AUG_RATIO 0.1, "
+        f"{SF_FIT_EPOCHS} epochs of 1 step)")
+    _reset_counts()
+    FT.fwd_launches = FT.bwd_launches = 0
+    t0 = time.perf_counter()
+    trainer, state = cli.main_sideface(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"fused_attention_train_fwd": FT.fwd_launches,
+              "fused_attention_train_bwd": FT.bwd_launches,
+              "flash_attention": A.launches}
+    cfg = trainer.cfg
+    check(type(trainer) is SidefaceTrainer, "data_fit: not the sideface "
+          "trainer")
+    check((cfg.BATCH_SIZE, cfg.MODEL.DROPOUT, cfg.DATA.AUG_RATIO,
+           cfg.trainer.fused_attention, cfg.trainer.sample_cache,
+           cfg.trainer.device_data) == (64, 0.2, 0.1, True, True, True),
+          "data_fit: not the sideface config's settings")
+    loader = trainer.train_dataloader()
+    check(isinstance(loader, DeviceDataLoader),
+          f"data_fit: the trainer took {type(loader).__name__}")
+    check(os.path.isdir(os.path.join(cfg.trainer.default_root_dir,
+                                     ".sample_cache")),
+          "data_fit: no packed-sample cache")
+    losses, ms_step, val = _fit_ms(trainer.log_dir)
+    check(len(losses) == SF_FIT_EPOCHS == state.step,
+          f"data_fit: {len(losses)} logged steps, state at {state.step}")
+    check(all(np.isfinite(losses)), "data_fit: a loss is not finite")
+    check(val is not None and 0.0 <= val["val/fmeasure"] <= 1.0,
+          "data_fit: validation F1")
+    L = cfg.MODEL.NUM_ENCODER_LAYERS + 2 * cfg.MODEL.NUM_DECODER_LAYERS
+    check(counts["fused_attention_train_fwd"] == L * SF_FIT_EPOCHS
+          and counts["fused_attention_train_bwd"] == L * SF_FIT_EPOCHS
+          and counts["flash_attention"] > 0,
+          f"data_fit: kernel launches {counts}")
+    # after the checks of the fit: these steps move the state on
+    sf_idle, sf_busy = device_steps_idle(trainer, state, _Epochs(loader))
+    sf_aug_ms = pack_ms(loader.dataset, True)
+    log(f"data_fit sideface {SF_FIT_EPOCHS} steps B=64 device_data on {card}: "
+        f"losses {' '.join(f'{x:.4f}' for x in losses)}; {ms_step:.1f} ms "
+        f"per step (steps 6-{SF_FIT_EPOCHS}, host clock); val on "
+        f"{len(sf_infos)} sideface requests P {val['val/precision']:.4f} R "
+        f"{val['val/recall']:.4f} F1 {val['val/fmeasure']:.4f}; wall "
+        f"{wall:.1f} s; launches {counts}; two more steps under the "
+        f"profiler: device busy {sf_busy:.1f} ms a step, idle share "
+        f"{sf_idle:.3f}; an augmented row (noise and side-face extraction) "
+        f"packs in {sf_aug_ms:.2f} ms on the host")
+    res = {"sideface": {"losses": losses, "ms_per_step": ms_step,
+                        "val_f1": val["val/fmeasure"], "launches": counts,
+                        "busy_ms_per_step": sf_busy, "idle_share": sf_idle,
+                        "aug_pack_ms": sf_aug_ms}}
+    note("data_fit", f"sideface device_data: loss {losses[0]:.4f} -> "
+         f"{losses[-1]:.4f}, {ms_step:.1f} ms/step (device busy "
+         f"{sf_busy:.1f}, idle share {sf_idle:.3f}, augmented row packs in "
+         f"{sf_aug_ms:.2f} ms), val F1 "
+         f"{val['val/fmeasure']:.4f}, kernel 3 launches fwd "
+         f"{counts['fused_attention_train_fwd']} bwd "
+         f"{counts['fused_attention_train_bwd']} ({card})")
+    trainer.close()
+    del trainer, state, loader
+    torch.cuda.empty_cache()
+
+    # the complete fit three ways, on the same steps
+    path = os.path.join(ROOT, "configs", "train_synthetic_gqa.yaml")
+    base = {k[2:]: v for k, v in data.items()}
+    base.update({"model.hparams.DATASETS_TRAIN": splits["tiled"],
+                 "trainer.max_epochs": str(TIMING_EPOCHS),
+                 "trainer.check_val_every_n_epoch": "1000",
+                 "trainer.save_last": "false"})
+    timing = {}
+    for mode, flags, kind in (
+            ("DataLoader", {}, DataLoader),
+            ("sample_cache", {"trainer.sample_cache": "true"}, DataLoader),
+            ("device_data", {"trainer.device_data": "true"},
+             DeviceDataLoader)):
+        cfg = load_config(path, {**base, **flags,
+                                 "trainer.default_root_dir":
+                                     os.path.join(tmp, f"t_{mode}")})
+        trainer = Trainer(cfg, device=DEVICE)
+        state = trainer.fit(trainer.init_state())
+        torch.cuda.synchronize()
+        losses, ms, _ = _fit_ms(trainer.log_dir)
+        loader = trainer.train_dataloader()
+        check(type(loader) is kind and (loader.dataset._cache is not None)
+              == bool(flags), f"data_fit {mode}: the trainer took "
+              f"{type(loader).__name__}")
+        steps = TIMING_TILE * len(train_infos) // cfg.BATCH_SIZE \
+            * TIMING_EPOCHS
+        check(state.step == steps == len(losses)
+              and all(np.isfinite(losses)), f"data_fit {mode}: steps")
+        timing[mode] = ms
+        if mode == "device_data":
+            idle, busy = device_steps_idle(trainer, state, loader)
+            timing["device_data_idle_share"] = idle
+            timing["device_data_busy_ms_per_step"] = busy
+            timing["copies_ms"], timing["copies"] = step_copies_ms(loader)
+            timing["pack_ms"] = pack_ms(loader.dataset, False)
+            timing["aug_pack_ms"] = pack_ms(loader.dataset, True)
+        loader.close()
+        trainer.close()
+        del trainer, state, loader
+        torch.cuda.empty_cache()
+    log(f"data_fit complete fit, B={cfg.BATCH_SIZE}, {steps} steps "
+        f"({steps // TIMING_EPOCHS} an epoch) on {card}: host-clock ms per "
+        f"step (steps 6-{steps}): DataLoader {timing['DataLoader']:.1f}, "
+        f"sample_cache {timing['sample_cache']:.1f}, device_data "
+        f"{timing['device_data']:.1f}; two device_data steps under the "
+        f"profiler: device busy {timing['device_data_busy_ms_per_step']:.1f} "
+        f"ms a step, idle share {timing['device_data_idle_share']:.3f}; a "
+        f"step's {timing['copies']} host-to-device copies (indices, "
+        f"positions, augmented rows) {timing['copies_ms']:.3f} ms; a sample "
+        f"packs from its JSON in {timing['pack_ms']:.2f} ms on the host, "
+        f"{timing['aug_pack_ms']:.2f} ms augmented")
+    note("data_fit", f"complete ms/step DataLoader {timing['DataLoader']:.1f} "
+         f"sample_cache {timing['sample_cache']:.1f} device_data "
+         f"{timing['device_data']:.1f}; device_data busy "
+         f"{timing['device_data_busy_ms_per_step']:.1f} ms/step idle share "
+         f"{timing['device_data_idle_share']:.3f}, copies "
+         f"{timing['copies_ms']:.3f} ms; a sample packs in "
+         f"{timing['pack_ms']:.2f} ms, augmented {timing['aug_pack_ms']:.2f} "
+         f"({card})")
+    res["complete"] = timing
+    return res
+
+
 # ------------------------------------------------------------------- main
+def summarize(res):
+    """One line per phase that ran with its headline numbers, kept short:
+    they stand in the last lines of the output."""
+    if "flash" in res:
+        r = res["flash"]
+        note("flash", f"main shape err {r['err']:.2e}, kernel {r['ms']:.3f} "
+             f"ms, plain {r['plain_ms']:.3f}, sdpa {r['library_ms']:.3f}, "
+             f"bound {r['bound_ms']:.4f}, f32 kernel {r['ms_f32']:.3f} ms")
+    if "decode" in res:
+        d = res["decode"]
+        note("decode", f"agreement {d['token_agreement']:.4f}, {d['ms']:.2f} "
+             f"ms for {d['steps']} steps ({d['ms_per_step']:.3f} ms/step), "
+             f"idle share {d['idle_share']:.3f}")
+    if "decode_options" in res:
+        d = res["decode_options"]
+        note("decode_options", "ms/step persistent/mxu " + ", ".join(
+            f"B={r['B']} {r['persistent_ms_per_step']:.3f}/"
+            f"{r['mxu_ms_per_step']:.3f}" for r in d["band"]))
+        note("decode_options", "weight_quant " + ", ".join(
+            f"{n} F1 {d['wq_' + n]['f1']:.6f} (golden "
+            f"{d['wq_' + n]['golden_f1']:.6f}) identical "
+            f"{d['wq_' + n]['identical']:.4f}" for n in ("bf16", "f32")))
+    if "beam" in res:
+        note("beam", ", ".join(
+            f"{n} F1 {b['f1']:.6f} (golden {b['golden_f1']:.6f}) identical "
+            f"{b['identical']:.4f} {b['ms'] / b['steps']:.3f} ms/step"
+            for n, b in res["beam"].items()))
+    if "http" in res:
+        note("http", f"{res['http']['programs_per_s']:.2f} programs/s, F1 "
+             f"{res['http']['f1']:.6f}")
+    if "train_kernel" in res:
+        kres, worst = res["train_kernel"]
+        enc = kres[("encoder self", 0.2)]
+        note("train_kernel", f"worst err fwd {worst['fwd']:.2e} bwd "
+             f"{worst['bwd']:.2e}; encoder self rate 0.2 fwd {enc['ms']:.3f} "
+             f"ms, bwd {enc['bwd_ms']:.3f} ms")
+    if "mha_kernels" in res:
+        mk = res["mha_kernels"]
+        c, f = mk[("cross", "bf16", "int8")], mk[("fused", "bf16")]
+        note("mha_kernels", f"cross_attn_decode int8 {c['ms']:.4f} ms (err "
+             f"{c['err']:.2e}), fused layer {f['ms']:.4f} ms (err "
+             f"{f['err']:.2e})")
+    for phase in PHASES:
+        if phase in SUMMARY:
+            log(f"summary {phase}: " + "; ".join(SUMMARY[phase]))
+
+
 def _entry(name, source, replaces, launches, err, r, prefix="",
            library_key=None):
     return {"name": name, "route": "cuda", "source": source,
@@ -2312,6 +2958,8 @@ def main() -> int:
               f"the bf16 decode GEMM runs no tensor-core instruction: {dmma}")
         check(all(n > 0 for n in acp.values()),
               f"a redesigned decode kernel has no asynchronous copy: {acp}")
+        note("device", f"{card}; kernels {built}; fewest HMMA "
+             f"{min(hmma.values())}, async copies {min(acp.values())}")
 
     params, cfg = load_checkpoint(CKPT, device=DEVICE)
     dims = ModelDims.from_config(cfg)
@@ -2386,7 +3034,24 @@ def main() -> int:
                 res["mha_serve"] = phase_mha_serve(
                     mha_params, mha_cfg, mha_dims, mha_packed, mha_golden,
                     mha_bucket, mha_req)
+        if {"mha_kernels", "mha_serve"} & set(phases):
+            del mha_params, mha_req
+            torch.cuda.empty_cache()
+        sf_infos = sideface_requests(infos)
+        if "sideface_serve" in phases:
+            with Phase("sideface_serve"):
+                sf_params, sf_cfg = load_checkpoint(SF_CKPT, device=DEVICE)
+                res["sideface_serve"] = phase_sideface_serve(
+                    sf_params, sf_cfg, ModelDims.from_config(sf_cfg),
+                    sf_infos, np.load(os.path.join(
+                        FIXTURES, "serve64_sideface_jax_golden.npz")))
+                del sf_params
+                torch.cuda.empty_cache()
+        if "data_fit" in phases:
+            with Phase("data_fit"):
+                res["data_fit"] = phase_data_fit(train_infos, sf_infos, tmp)
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    summarize(res)
     if set(phases) != set(PHASES):
         log(f"ran phases {phases} only; no result line")
         return 0
@@ -2447,6 +3112,13 @@ def main() -> int:
     decode_entry["async_copies"] = {
         k: res["async_copies"][k]
         for k in ASYNC_KERNELS["persistent_greedy_decode"]}
+    # launches on the sideface paths: serving (bf16) and the device-data fit
+    sf = res["sideface_serve"]["bf16"]["launches"]
+    flash_entry["launches_sideface_serve"] = sf["flash_attention"]
+    decode_entry["launches_sideface_serve"] = sf["persistent_greedy_decode"]
+    df = res["data_fit"]["sideface"]["launches"]
+    fwd["launches_data_fit"] = df["fused_attention_train_fwd"]
+    bwd["launches_data_fit"] = df["fused_attention_train_bwd"]
     kernels = [
         flash_entry,
         decode_entry,

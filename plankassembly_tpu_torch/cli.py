@@ -1,9 +1,14 @@
-"""Command line of the port's trainer (the surface of
+"""Command line of the port's trainers (the surface of
 `plankassembly_tpu/cli.py`):
 
     python -m plankassembly_tpu_torch.cli fit --config configs/train_synthetic_gqa.yaml
     python -m plankassembly_tpu_torch.cli validate --config ... --ckpt_path <run>/checkpoints/best
     python -m plankassembly_tpu_torch.cli test --config ... --ckpt_path <run>/checkpoints/last
+
+`cli` (and `trainer_complete`) trains the complete-lines modality;
+`python -m plankassembly_tpu_torch.trainer_visible` and
+`python -m plankassembly_tpu_torch.trainer_sideface` take the same
+arguments for the visible-lines and sideface modalities.
 
 `--device cuda|cpu` picks the device (default cuda; without CUDA it
 raises rather than run on the CPU). `fit --ckpt_path` resumes from a
@@ -56,15 +61,17 @@ def parse_args(argv: list[str]):
     return subcommand, config_path, ckpt_path, device, overrides
 
 
-def main(argv: list[str] | None = None):
-    """Run one subcommand; returns (the Trainer, the trained TrainState)
-    for fit and (the Trainer, (precision, recall, fmeasure)) otherwise."""
-    from plankassembly_tpu_torch.train.loop import Trainer
+def main(argv: list[str] | None = None, trainer_cls=None):
+    """Run one subcommand with `trainer_cls` (default the complete-lines
+    `Trainer`); returns (the trainer, the trained TrainState) for fit and
+    (the trainer, (precision, recall, fmeasure)) otherwise."""
+    if trainer_cls is None:
+        from plankassembly_tpu_torch.train.loop import Trainer as trainer_cls
 
     argv = argv if argv is not None else sys.argv[1:]
     subcommand, config_path, ckpt_path, device, overrides = parse_args(argv)
     cfg = load_config(config_path, overrides)
-    trainer = Trainer(cfg, device=device)
+    trainer = trainer_cls(cfg, device=device)
     print(f"log_dir: {trainer.log_dir}", flush=True)
     try:
         state = (trainer.load_checkpoint(ckpt_path) if ckpt_path
@@ -77,6 +84,21 @@ def main(argv: list[str] | None = None):
         trainer.close()
     print("precision={:.4f} recall={:.4f} fmeasure={:.4f}".format(*scores))
     return trainer, scores
+
+
+def main_complete(argv: list[str] | None = None):
+    from plankassembly_tpu_torch.train.loop import Trainer
+    return main(argv, Trainer)
+
+
+def main_visible(argv: list[str] | None = None):
+    from plankassembly_tpu_torch.train.loop import VisibleTrainer
+    return main(argv, VisibleTrainer)
+
+
+def main_sideface(argv: list[str] | None = None):
+    from plankassembly_tpu_torch.train.loop import SidefaceTrainer
+    return main(argv, SidefaceTrainer)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """Line-input dataset (complete and visible modalities): a copy of
-`plankassembly_tpu/data/line_data.py` without the packed-sample cache.
+`plankassembly_tpu/data/line_data.py`.
 
 Reads the per-sample info JSONs of the data factory and packs them into
 static-shape token arrays. One relaxation: the `svgs` polylines are parsed
@@ -14,6 +14,7 @@ import os
 import numpy as np
 
 from plankassembly_tpu_torch.config import Config
+from plankassembly_tpu_torch.data import cache as sample_cache
 from plankassembly_tpu_torch.data import geometry as geo
 from plankassembly_tpu_torch.data.noise import add_noise
 from plankassembly_tpu_torch.data.packing import (
@@ -24,15 +25,29 @@ from plankassembly_tpu_torch.data.packing import (
 class LineDataset:
     """Map-style dataset: index -> dict of numpy arrays + 'name'. With
     `augmentation`, a read is corrupted by `add_noise` with probability
-    DATA.AUG_RATIO, drawing from `rng` (default numpy's global RNG)."""
+    DATA.AUG_RATIO, drawing from `rng` (default numpy's global RNG).
+
+    cache_dir: a packed-sample cache (`data/cache.py`) of the clean
+    samples, built on first use with the JAX dataset's key: clean reads
+    come from it, augmented reads pack afresh from the JSON."""
 
     def __init__(self, root: str, info_files: list[str], cfg: Config,
-                 augmentation: bool = False, rng=None):
+                 augmentation: bool = False, rng=None,
+                 cache_dir: str | None = None):
         self.root = root
         self.info_files = info_files
         self.cfg = cfg
         self.augmentation = augmentation
         self.rng = rng or np.random
+        self._cache = None
+        if cache_dir:
+            key = [type(self).__name__,
+                   cfg.DATA.MAX_INPUT_LENGTH, cfg.DATA.MAX_OUTPUT_LENGTH,
+                   cfg.DATA.NUM_BITS, cfg.TOKEN.END, cfg.TOKEN.PAD]
+            key += sample_cache.split_fingerprint(root, info_files)
+            self._cache = sample_cache.build_or_open(
+                cache_dir, key, len(info_files),
+                lambda i: self._pack(i, False, None)[1], progress_every=5000)
 
     def __len__(self) -> int:
         return len(self.info_files)
@@ -66,5 +81,14 @@ class LineDataset:
         rng = rng or self.rng
         augment = (self.augmentation
                    and rng.random() < self.cfg.DATA.AUG_RATIO)
+        if self._cache is not None and not augment:
+            return {"name": cached_name(self.info_files[index]),
+                    **self._cache.row(index)}
         name, arrays = self._pack(index, augment, rng)
         return {"name": name, **arrays}
+
+
+def cached_name(info_file: str) -> str:
+    """A cached row's name: the info file's base name without extension
+    (the JSON is not read)."""
+    return os.path.splitext(info_file)[0].split("/")[-1]

@@ -4,6 +4,8 @@ port's counterpart of `tools/serve.py` (its `--ckpt` backend).
   python -m plankassembly_tpu_torch.serve --ckpt checkpoints/gqa_complete_ep221.npz \\
       --batch 16 --bucket 512 [--beam 4] [--weight_quant] [--cpu] --port 8713
   python -m plankassembly_tpu_torch.serve --ckpt ... --bucket 512 768 1152   # a ladder
+  python -m plankassembly_tpu_torch.serve --ckpt checkpoints/gqa_sideface_ep119.npz \
+      --no_input_type --bucket 128 299                                   # sideface
 
   curl -s localhost:8713/v1/reconstruct -d @info.json
   curl -s localhost:8713/healthz
@@ -11,8 +13,10 @@ port's counterpart of `tools/serve.py` (its `--ckpt` backend).
 Concurrent requests share one decode call (`serving.BatchingServer`): up to
 --batch rows after at most --max_wait_ms of queueing. Several --bucket
 values serve a ladder: each request goes to the smallest bucket that fits
-its real tokens (`serving.BucketRouter`). Without --cpu it runs on the GPU
-and raises if CUDA is absent.
+its real tokens (`serving.BucketRouter`). --no_input_type serves a
+sideface checkpoint: each request's `svgs` go through the side-face
+extractor, and its bucket is chosen by its packed face tokens. Without
+--cpu it runs on the GPU and raises if CUDA is absent.
 """
 from __future__ import annotations
 
@@ -25,7 +29,6 @@ from plankassembly_tpu_torch.config import ModelDims
 from plankassembly_tpu_torch.device import resolve_device
 
 ARTIFACT_TODO = "not ported yet (ROADMAP.md §1, item 6: export)"
-SIDEFACE_TODO = "not ported yet (ROADMAP.md §1, item 4: sideface)"
 
 
 def parse_args(argv=None):
@@ -49,14 +52,13 @@ def parse_args(argv=None):
                     help="int8 decoder and head weights "
                     "(decode.quantize_decoder_weights; greedy takes mxu)")
     ap.add_argument("--no_input_type", action="store_true",
-                    help=f"sideface requests: {SIDEFACE_TODO}")
+                    help="sideface input contract: requests' svgs run the "
+                    "side-face extractor and pack with no line-type stream")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the kernels' plain versions)")
     args = ap.parse_args(argv)
     if args.artifact:
         ap.error(f"--artifact: {ARTIFACT_TODO}")
-    if args.no_input_type:
-        ap.error(f"--no_input_type: {SIDEFACE_TODO}")
     return args
 
 
@@ -77,7 +79,8 @@ def make_server(argv=None):
     for bucket in sorted(set(args.bucket)):
         backend, meta = make_live_backend(
             params, cfg, batch=args.batch, bucket=bucket, beam=args.beam,
-            compute_dtype=torch.bfloat16, device=dev)
+            compute_dtype=torch.bfloat16, device=dev,
+            with_type=not args.no_input_type)
         servers.append(BatchingServer(backend, meta,
                                       max_wait_ms=args.max_wait_ms))
     server = servers[0] if len(servers) == 1 else BucketRouter(servers)

@@ -5,7 +5,9 @@ Ports `plankassembly_tpu/serving.py` and the serving contract of
 `plankassembly_tpu/export.py` (`serving_meta`, `pad_request`):
 
 - `pack_info_dict` packs one info-JSON request (`lines`, or the `svgs`
-  GeoJSON linestrings) into the model's input streams;
+  GeoJSON linestrings) into the model's input streams; for the sideface
+  modality (`with_type=False`) it extracts the side faces of the `svgs`
+  and packs them with no line-type stream;
 - `make_live_backend` turns a loaded checkpoint into a backend callable
   with the (batch, bucket) serving contract, greedy (`cross_impl`, "auto"
   by default) or beam search (`beam`);
@@ -17,8 +19,6 @@ Ports `plankassembly_tpu/serving.py` and the serving contract of
 - `make_http_server` exposes a server or a router over stdlib HTTP
   (`POST /v1/reconstruct`, `GET /healthz`, `GET /meta`);
 - `postprocess_prediction` turns a decoded row into planks + attachments.
-
-Requests of the sideface modality (`with_type=False`) are not ported yet.
 """
 from __future__ import annotations
 
@@ -34,13 +34,11 @@ from plankassembly_tpu_torch.beam import beam_decode
 from plankassembly_tpu_torch.config import ModelDims
 from plankassembly_tpu_torch.data import geometry as geo
 from plankassembly_tpu_torch.data.packing import pack_input_sequence
+from plankassembly_tpu_torch.data.sideface_data import extract_sidefaces
 from plankassembly_tpu_torch.decode import (
     _is_prequantized, greedy_decode, parse_sequence,
 )
 from plankassembly_tpu_torch.device import resolve_device
-
-SIDEFACE_TODO = ("sideface requests (with_type=False) are not ported yet "
-                 "(ROADMAP.md §1, item 4)")
 
 _INPUT_DTYPES = {
     "input_value": np.int32,
@@ -56,9 +54,11 @@ def serving_meta(dims: ModelDims, *, batch: int, bucket: int, beam: int = 0,
                  compute_dtype=torch.bfloat16, device="cuda",
                  weight_quant: bool = False, with_type: bool = True) -> dict:
     """The serving contract header (`plankassembly_tpu/export.py:50`) of
-    an early-exiting backend for line-drawing requests."""
-    if not with_type:
-        raise NotImplementedError(SIDEFACE_TODO)
+    an early-exiting backend. with_type=False is the sideface modality's
+    contract: no `input_type` stream, so the encoder adds no type
+    embedding."""
+    keys = {k: v for k, v in _INPUT_DTYPES.items()
+            if with_type or k != "input_type"}
     return {
         "batch": batch,
         "bucket": bucket,
@@ -66,11 +66,10 @@ def serving_meta(dims: ModelDims, *, batch: int, bucket: int, beam: int = 0,
         "platforms": [str(device)],
         "early_exit": True,
         "weight_quant": bool(weight_quant),
-        "with_type": True,
+        "with_type": bool(with_type),
         "compute_dtype": str(compute_dtype).replace("torch.", ""),
-        "input_keys": sorted(_INPUT_DTYPES),
-        "input_dtypes": {k: np.dtype(v).name
-                         for k, v in _INPUT_DTYPES.items()},
+        "input_keys": sorted(keys),
+        "input_dtypes": {k: np.dtype(v).name for k, v in keys.items()},
         "max_output_length": dims.max_output_length,
         "num_output_dof": dims.num_output_dof,
         "token_end": dims.end,
@@ -111,10 +110,26 @@ def pad_request(batch: dict, meta: dict) -> tuple[dict, int]:
 def pack_info_dict(info: dict, cfg, with_type: bool = True) -> dict:
     """Pack one prepare_info-contract dict (`lines`/`views`/`types`, or
     raw `svgs` GeoJSON linestrings in place of `lines`, whose bounding
-    boxes are the lines) into the model's input streams. with_type=False,
-    the sideface modality, is not ported yet and raises."""
+    boxes are the lines) into the model's input streams.
+
+    with_type=False is the sideface modality: the request's `svgs` go
+    through the side-face extractor (`data/sideface_data.py`, as the
+    sideface dataset derives its inputs) and pack with no line-type
+    stream. A request without `svgs` raises ValueError."""
     if not with_type:
-        raise NotImplementedError(SIDEFACE_TODO)
+        if "svgs" not in info:
+            raise ValueError("sideface requests need 'svgs' (GeoJSON view "
+                             "linestrings): side faces are derived, not "
+                             "given as lines")
+        linestrings = [geo.from_geojson(s) for s in info["svgs"]]
+        data = cfg.DATA
+        faces, faceviews = extract_sidefaces(
+            linestrings, np.asarray(info["views"]),
+            data.MAX_THICKNESS / data.SCALE,
+            data.MERGE_TOLERANCE / data.SCALE,
+            data.MIN_THICKNESS / data.SCALE)
+        return pack_input_sequence(faces, faceviews, None, cfg.DATA,
+                                   cfg.TOKEN, with_type=False)
     if "lines" in info:
         lines = np.array(info["lines"], dtype=np.float64)
     else:
@@ -144,7 +159,9 @@ def make_live_backend(params, cfg, *, batch: int, bucket: int, beam: int = 0,
     that width (`beam.beam_decode`); otherwise greedily with int8 cross
     K/V (`kv_quant=True`) by the decode path `cross_impl` names
     (`decode.decode_from_memory`; "auto" takes the persistent kernels on
-    a GPU in their batch band). Weights from
+    a GPU in their batch band). with_type=False serves the sideface
+    modality (requests packed by `pack_info_dict(with_type=False)`).
+    Weights from
     `decode.quantize_decoder_weights` decode with int8 weights.
 
     Unlike the JAX backend, which compiles for a fixed batch, this decodes

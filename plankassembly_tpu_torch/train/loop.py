@@ -1,8 +1,22 @@
-"""Training, validation and test for the complete-lines modality
-(`plankassembly_tpu/train/loop.py::Trainer`, the reference's
-`trainer_complete.py`): LineDataset with train-time noise augmentation,
+"""Training, validation and test for the three line modalities
+(`plankassembly_tpu/train/loop.py`):
+
+- `Trainer`, the complete-lines modality (the reference's
+  `trainer_complete.py`): LineDataset with train-time noise augmentation;
+- `VisibleTrainer`, the visible-lines modality: LineDataset with
+  augmentation off for training, the reference's slip that the published
+  visible checkpoint was trained with;
+- `SidefaceTrainer`, the sideface modality: SidefaceDataset; a test
+  drawing with no detected side face scores 0, is left out of the
+  criterion, and its prediction JSON holds no planks; its JSONs carry no
+  `attach` key.
+
 Adam, validation by greedy decode, prediction-JSON dumps bit-compatible
-with the reference's, and checkpoints.
+with the reference's, and checkpoints. `trainer.sample_cache` reads the
+clean samples from a packed-sample cache (`data/cache.py`) under
+`<default_root_dir>/.sample_cache`; `trainer.device_data` also holds the
+cached training split on the device and assembles each batch there
+(`data/device_loader.py`), as in JAX.
 
 Differences from the JAX trainer:
 - one device, no mesh: `trainer.devices > 1` or `strategy: dp+tp` raise;
@@ -18,7 +32,10 @@ Differences from the JAX trainer:
   same `.meta.json`, not orbax directories;
 - the augmentation RNG is a `np.random.RandomState(seed_everything)`, not
   numpy's unseeded global one; the metrics go to JSONL and stdout, not to
-  TensorBoard too.
+  TensorBoard too;
+- `device_data` with the sideface modality trains: the JAX device loader
+  calls the sideface dataset's `_pack` with a signature that dataset does
+  not have, so an augmented row raises there.
 """
 from __future__ import annotations
 
@@ -30,8 +47,10 @@ import numpy as np
 import torch
 
 from plankassembly_tpu_torch.config import Config, ModelDims, write_hparams_yaml
+from plankassembly_tpu_torch.data.device_loader import DeviceDataLoader
 from plankassembly_tpu_torch.data.line_data import LineDataset
 from plankassembly_tpu_torch.data.loader import DataLoader, parse_splits_list
+from plankassembly_tpu_torch.data.sideface_data import SidefaceDataset
 from plankassembly_tpu_torch.beam import beam_decode
 from plankassembly_tpu_torch.decode import (
     IMPLS, greedy_decode, parse_sequence, pick_kv_bucket,
@@ -42,7 +61,8 @@ from plankassembly_tpu_torch.metrics import (
 )
 from plankassembly_tpu_torch.models.model import init_params
 from plankassembly_tpu_torch.train.state import (
-    TrainState, init_state, make_optimizer, make_train_step, tree_leaves,
+    TrainState, init_state, make_device_train_step, make_optimizer,
+    make_train_step, tree_leaves,
 )
 from plankassembly_tpu_torch.utils.profiling import StepTimer
 
@@ -122,6 +142,9 @@ class Trainer:
         self.train_step_fn = make_train_step(
             self.dims, compute_dtype=compute_dtype,
             flash=tc.fused_attention)
+        self.device_step_fn = make_device_train_step(
+            self.dims, compute_dtype=compute_dtype,
+            flash=tc.fused_attention)
         self._rng = torch.Generator(device=self.device).manual_seed(
             cfg.seed_everything)
         self._aug_rng = np.random.RandomState(cfg.seed_everything)
@@ -136,12 +159,22 @@ class Trainer:
     # data
     # ------------------------------------------------------------------
     def _dataset(self, split_files: str, augmentation: bool):
+        tc = self.cfg.trainer
+        cache_dir = (os.path.join(tc.default_root_dir, ".sample_cache")
+                     if tc.sample_cache or tc.device_data else None)
         return self.dataset_cls(self.cfg.ROOT, parse_splits_list(split_files),
                                 self.cfg, augmentation=augmentation,
-                                rng=self._aug_rng if augmentation else None)
+                                rng=self._aug_rng if augmentation else None,
+                                cache_dir=cache_dir)
 
-    def train_dataloader(self) -> DataLoader:
+    def train_dataloader(self):
+        """`DeviceDataLoader` over the cached split with
+        `trainer.device_data`, else `DataLoader`."""
         ds = self._dataset(self.cfg.DATASETS_TRAIN, self.train_augmentation)
+        if self.cfg.trainer.device_data and ds._cache is not None:
+            return DeviceDataLoader(ds, ds._cache, self.cfg.BATCH_SIZE,
+                                    self.device,
+                                    seed=self.cfg.seed_everything)
         return DataLoader(ds, batch_size=self.cfg.BATCH_SIZE, shuffle=True,
                           drop_last=True, seed=self.cfg.seed_everything,
                           num_workers=self.cfg.NUM_WORKERS)
@@ -197,8 +230,13 @@ class Trainer:
         try:
             for epoch in range(max_epochs):
                 for batch in loader:
-                    mets = self.train_step_fn(
-                        state, _to_device(batch, self.device), self._rng)
+                    if "idx" in batch:  # device-resident data
+                        mets = self.device_step_fn(
+                            state, loader.fields, batch["idx"], batch["aug"],
+                            batch["pos"], self._rng)
+                    else:
+                        mets = self.train_step_fn(
+                            state, _to_device(batch, self.device), self._rng)
                     timer.tick(mets["loss"])
                     if state.step % tc.log_every_n_steps == 0:
                         self._log_step(state.step, epoch, mets, timer)
@@ -285,12 +323,15 @@ class Trainer:
                 arrays, out = self._decode_batch(state, batch)
                 samples = out["samples"].cpu().numpy()
                 attach = out["attach"].cpu().numpy()
-                gts = batch["output_value"]
+                gts, in_masks = batch["output_value"], batch["input_mask"]
                 for i, name in enumerate(batch["name"]):
                     if not batch["_local_valid"][i]:
                         continue
-                    criterion.update(*self._write_prediction(
-                        pred_dir, name, samples[i], attach[i], gts[i]))
+                    scores = self._write_prediction(
+                        pred_dir, name, samples[i], attach[i], gts[i],
+                        in_masks[i])
+                    if scores is not None:
+                        criterion.update(*scores)
         finally:
             loader.close()
         prec, rec, f1 = criterion.compute()
@@ -299,29 +340,31 @@ class Trainer:
                                      "test/fmeasure": f1})
         return prec, rec, f1
 
-    def _write_prediction(self, pred_dir, name, sample, attach, gt):
-        pred = parse_sequence(sample, self.dims)
-        gt_parsed = parse_sequence(gt, self.dims)
-        # filter zero-extent planks, keep the bbox row
-        if len(pred) > 0:
-            body = pred[1:]
-            keep = np.all(np.abs(body[:, 3:] - body[:, :3]) != 0, axis=1)
-            valid_pred = np.concatenate([pred[:1], body[keep]])
-        else:
-            valid_pred = pred
+    def _write_prediction(self, pred_dir, name, sample, attach, gt, in_mask):
+        """Write `pred_jsons/<name>.json`; returns (P, R, F1) for the
+        criterion, or None to leave the drawing out of it."""
+        valid_pred, gt_parsed = self._parse(sample, gt)
         prec, rec, f1 = hungarian_match_host(
             valid_pred[1:], gt_parsed[1:], self.cfg.THRESHOLD)
-        payload = {
+        _dump(pred_dir, name, {
             "prediction": valid_pred.tolist(),
             "attach": attach[: valid_pred.size].reshape(-1, 6).tolist(),
             "groundtruth": gt_parsed.tolist(),
             "precision": prec,
             "recall": rec,
             "fmeasure": f1,
-        }
-        with open(os.path.join(pred_dir, f"{name}.json"), "w") as f:
-            json.dump(payload, f, indent=4, separators=(", ", ": "))
+        })
         return prec, rec, f1
+
+    def _parse(self, sample, gt):
+        """(predicted planks without the zero-extent ones, bbox row kept;
+        ground-truth planks)."""
+        pred = parse_sequence(sample, self.dims)
+        if len(pred) > 0:
+            body = pred[1:]
+            keep = np.all(np.abs(body[:, 3:] - body[:, :3]) != 0, axis=1)
+            pred = np.concatenate([pred[:1], body[keep]])
+        return pred, parse_sequence(gt, self.dims)
 
     # ------------------------------------------------------------------
     # checkpoints: <log_dir>/checkpoints/<tag>.pt and <tag>.meta.json
@@ -354,3 +397,39 @@ class Trainer:
             state.optimizer.load_state_dict(opt_state)
         state.step = step
         return state
+
+
+def _dump(pred_dir, name, payload):
+    with open(os.path.join(pred_dir, f"{name}.json"), "w") as f:
+        json.dump(payload, f, indent=4, separators=(", ", ": "))
+
+
+class VisibleTrainer(Trainer):
+    """Visible-lines modality: the training split is never augmented (the
+    reference's slip, kept: the published visible checkpoint was trained
+    that way)."""
+
+    train_augmentation = False
+
+
+class SidefaceTrainer(Trainer):
+    """Sideface modality (the reference's `trainer_sideface.py`)."""
+
+    dataset_cls = SidefaceDataset
+    train_augmentation = True
+
+    def _write_prediction(self, pred_dir, name, sample, attach, gt, in_mask):
+        valid_pred, gt_parsed = self._parse(sample, gt)
+        if in_mask[1:].all():
+            # no detected side face: zero scores, left out of the criterion
+            _dump(pred_dir, name, {
+                "prediction": [], "groundtruth": gt_parsed.tolist(),
+                "precision": 0.0, "recall": 0.0, "fmeasure": 0.0})
+            return None
+        prec, rec, f1 = hungarian_match_host(
+            valid_pred[1:], gt_parsed[1:], self.cfg.THRESHOLD)
+        _dump(pred_dir, name, {
+            "prediction": valid_pred.tolist(),
+            "groundtruth": gt_parsed.tolist(),
+            "precision": prec, "recall": rec, "fmeasure": f1})
+        return prec, rec, f1

@@ -12,6 +12,7 @@ import dataclasses
 import torch
 
 from plankassembly_tpu_torch.config import ModelDims
+from plankassembly_tpu_torch.data.device_loader import assemble
 from plankassembly_tpu_torch.models.model import train_step_loss
 
 
@@ -74,3 +75,18 @@ def make_train_step(dims: ModelDims, compute_dtype=torch.bfloat16,
         return {k: v.detach() for k, v in mets.items()}
 
     return step
+
+
+def make_device_train_step(dims: ModelDims, compute_dtype=torch.bfloat16,
+                           flash: bool = False):
+    """The training step on device-resident data (`data/device_loader.py`;
+    JAX `make_device_train_step`): fn(state, fields, idx, aug, pos, rng)
+    gathers rows `idx` of the resident split `fields`, writes the
+    augmented rows `aug` at positions `pos`, and runs the step of
+    `make_train_step` on that batch."""
+    step = make_train_step(dims, compute_dtype=compute_dtype, flash=flash)
+
+    def device_step(state: TrainState, fields, idx, aug, pos, rng) -> dict:
+        return step(state, assemble(fields, idx, aug, pos), rng)
+
+    return device_step

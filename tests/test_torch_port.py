@@ -38,6 +38,14 @@ import plankassembly_tpu_torch.serve
 import plankassembly_tpu_torch.evaluate
 import plankassembly_tpu_torch.io.svg
 import plankassembly_tpu_torch.io.mesh
+import plankassembly_tpu_torch.data.geometry
+import plankassembly_tpu_torch.data.sideface_data
+import plankassembly_tpu_torch.data.cache
+import plankassembly_tpu_torch.data.device_loader
+import plankassembly_tpu_torch.train.loop
+import plankassembly_tpu_torch.trainer_complete
+import plankassembly_tpu_torch.trainer_visible
+import plankassembly_tpu_torch.trainer_sideface
 from plankassembly_tpu_torch.config import config_from_hparams_file
 cfg = config_from_hparams_file(sys.argv[1])
 leaked = sorted(m for m in sys.modules if sys.modules[m] is not None and (

@@ -194,12 +194,27 @@ def test_invalid_request_does_not_poison_batchmates(served):
 
 
 def test_sideface_requests_raise_until_ported():
+    """Sideface requests are ported: one with only `lines` raises
+    ValueError (side faces come from `svgs`), as in JAX; one with `svgs`
+    packs with no type stream, and the backend's contract has none."""
     cfg, dims, params = _model()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, item 4"):
+    with pytest.raises(ValueError, match="svgs"):
         serving.pack_info_dict(_tiny_info(1), cfg, with_type=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, item 4"):
-        serving.make_live_backend(params, cfg, batch=2, bucket=BUCKET,
-                                  device="cpu", with_type=False)
+    with pytest.raises(ValueError, match="svgs"):
+        jax_pack_info(_tiny_info(1), cfg, with_type=False)
+    square = [[[0.0, 0.0], [0.5, 0.0]], [[0.5, 0.0], [0.5, 0.01]],
+              [[0.5, 0.01], [0.0, 0.01]], [[0.0, 0.01], [0.0, 0.0]]]
+    info = {"svgs": [json.dumps({"type": "LineString", "coordinates": c})
+                     for c in square], "views": [0] * 4, "types": [0] * 4}
+    packed = serving.pack_info_dict(info, cfg, with_type=False)
+    assert "input_type" not in packed
+    assert int((~packed["input_mask"]).sum()) == 4 + 1  # one face + END
+    backend, meta = serving.make_live_backend(
+        params, cfg, batch=2, bucket=BUCKET, compute_dtype=torch.float32,
+        device="cpu", with_type=False)
+    assert not meta["with_type"] and "input_type" not in meta["input_keys"]
+    out = backend({k: v[None] for k, v in packed.items()})
+    assert out["samples"].shape == (1, dims.max_output_length)
 
 
 def test_bucket_router_routes_by_real_tokens():

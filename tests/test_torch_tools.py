@@ -150,11 +150,12 @@ def test_cli_flags_waiting_for_later_slices(setup, tmp_path, capsys):
     root, ckpt, _ = setup
     for mod, argv in ((predict, ["--ckpt", ckpt, "--out", str(tmp_path),
                                  "--artifact", "a.psrv"]),
-                      (serve, ["--ckpt", ckpt, "--artifact", "a.psrv"]),
-                      (serve, ["--ckpt", ckpt, "--no_input_type"])):
+                      (serve, ["--ckpt", ckpt, "--artifact", "a.psrv"])):
         with pytest.raises(SystemExit):
             mod.parse_args(argv)
         assert "not ported yet" in capsys.readouterr().err
+    # sideface serving is ported: the flag parses
+    assert serve.parse_args(["--ckpt", ckpt, "--no_input_type"]).no_input_type
     for mod in (predict, serve):
         with pytest.raises(SystemExit):
             mod.parse_args(["--help"])
@@ -279,3 +280,21 @@ def test_clis_need_cuda_unless_cpu(setup, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.make_server(["--ckpt", ckpt, "--port", "0"])
     assert not os.listdir(tmp_path)
+
+
+def test_profile_tool_busy_time_is_the_union_of_intervals():
+    """tools/profile_torch_serve.py's device busy time: kernels that
+    overlap (programmatic dependent launch) count once, gaps not at all,
+    in any order; the idle share stays in [0, 1]."""
+    from tools.profile_torch_serve import busy_union
+    spans = [(0.0, 10.0), (5.0, 12.0), (11.0, 11.5), (20.0, 25.0),
+             (24.0, 30.0), (40.0, 40.0)]
+    assert busy_union(spans) == 12.0 + 10.0
+    assert busy_union(reversed(spans)) == 22.0
+    assert busy_union([]) == 0.0
+    assert busy_union([(3.0, 4.0)] * 5) == 1.0
+    # with a wall of 24, the summed times (28.5) would give an idle
+    # share below 0; the union gives 1 - 22/24
+    wall = 24.0
+    assert 1 - sum(b - a for a, b in spans) / wall < 0.0
+    assert 1 - busy_union(spans) / wall == 1 - 22.0 / 24.0

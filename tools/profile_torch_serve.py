@@ -9,9 +9,12 @@ Loads the checkpoint, packs the first `--programs` drawings of the serving
 fixture (plankassembly_tpu_torch/fixtures), runs one warm-up decode, then
 one `greedy_decode` (encoder + decode loop, int8 cross K/V, by the decode
 path `--cross-impl` names; "kernel" and "fused" need an MHA checkpoint such
-as checkpoints/mha_complete_ep59.npz) under torch.profiler. Prints the wall time, the device time summed over
-kernels, the device's idle share of the wall time, the time per decode
-step, and the kernels ranked by device time. Needs CUDA.
+as checkpoints/mha_complete_ep59.npz) under torch.profiler. Prints the
+wall time, the device's busy time (the union of its kernels' and copies'
+device intervals: with programmatic dependent launch a kernel starts
+before the previous one ends, so their sum would overcount), the device's
+idle share of the wall time, the time per decode step, and the kernels
+ranked by device time (summed per kernel). Needs CUDA.
 """
 import argparse
 import gzip
@@ -33,6 +36,16 @@ def _device_us(evt) -> float:
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
+
+
+def busy_union(spans) -> float:
+    """Length of the union of (start, end) intervals: the time in which
+    at least one of them runs."""
+    busy, end = 0.0, -float("inf")
+    for a, b in sorted(spans):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy
 
 
 def main() -> int:
@@ -96,7 +109,10 @@ def main() -> int:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and _device_us(e) > 0]
-    busy_us = sum(_device_us(e) for e in kernels)
+    kernel_us = sum(_device_us(e) for e in kernels)
+    busy_us = busy_union((e.time_range.start, e.time_range.end)
+                         for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
@@ -106,14 +122,15 @@ def main() -> int:
           f"programs {args.programs} dtype {args.dtype} bucket {bucket} "
           f"steps {steps}: wall {wall_plain * 1e3:.1f} ms unprofiled, "
           f"{wall * 1e3:.1f} ms profiled; device busy {busy_us / 1e3:.1f} ms "
-          f"(idle share {1 - busy_us / 1e3 / (wall * 1e3):.3f}); "
+          f"(union of intervals; kernel times summed {kernel_us / 1e3:.1f} "
+          f"ms), idle share {1 - busy_us / 1e3 / (wall * 1e3):.3f}; "
           f"{wall_plain * 1e3 / steps:.3f} ms per step unprofiled")
     print(f"{'kernel':60s} {'calls':>7s} {'device ms':>10s} {'share':>6s} "
           f"{'us/call':>8s}")
     for e in sorted(kernels, key=_device_us, reverse=True)[: args.top]:
         us = _device_us(e)
         print(f"{e.key[:60]:60s} {e.count:7d} {us / 1e3:10.2f} "
-              f"{us / busy_us:6.3f} {us / max(e.count, 1):8.1f}")
+              f"{us / kernel_us:6.3f} {us / max(e.count, 1):8.1f}")
     return 0
 
 
