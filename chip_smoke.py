@@ -150,6 +150,31 @@ instead of hanging, each printing one line (or a few) when it ends:
    the training fixture, validated on the 64 serving drawings: losses, ms
    per step, launches of kernels 1 and 3.
 
+17. parallel: the parallel layer (`plankassembly_tpu_torch/parallel/`) on
+   the one card. NCCL refuses two ranks on one device, so a world of
+   several ranks is a gloo group of worker processes (`chip_smoke.py
+   --worker`) that all hold cuda:0; one one-rank NCCL world runs the same
+   trainer code. ep221's training step (the train_step phase's, kernels
+   on) on dp=2, on tp=2 (kernel 3 at 4 query heads over 1 kv head a rank)
+   and on the NCCL rank, f32 and bf16 at dropout 0, against the JAX
+   golden within STEP_TOL; the dp=2 and tp=2 steps at dropout 0.2 against
+   this process's one-process step with the same seed (f32 STEP_TOL: the
+   masks must be the global ones); configs/train_complete.yaml as
+   published (MHA, devices 4, BATCH_SIZE 16, dropout 0.2) on 4 gloo ranks
+   for 3 steps of 64 training drawings, its losses against the one NCCL
+   rank's B=64 run (bf16 STEP_TOL), ms a step of each, the gradient
+   all-reduce's ms; validation and test of its checkpoint across the 4
+   ranks (64 prediction JSONs, none twice) against one rank's of the same
+   checkpoint (every program identical, F1 equal); ep221's encoder with
+   its length axis over 2 ranks (1199 tokens padded to 1216: 608 query
+   rows a rank against 1216 keys) against one process's (FLASH_TOL f32,
+   the element bound in bf16); the verify recipe's overfit drive under
+   dp=2 (loss down more than 5x, F1 1.0, every program and its attach
+   pointers reproduced); kernel 3 at the tp=2 shape and kernel 1 at the
+   seq shape against their plain versions, timed; export_serving(
+   data_parallel=2) refused for want of visible devices. Gloo times on one
+   card are no multi-GPU figure.
+
 The flash phase also holds flash_attention at the raster encoder's shape
 (B=32, 8 heads over 8 kv heads, 192 keys, every one real), and the
 train_kernel phase the training attention at the raster fit's three
@@ -196,7 +221,7 @@ BUDGET = {"device": 240, "flash": 180, "decode": 240, "serve": 300,
           "decode_options": 300, "beam": 300, "http": 300,
           "train_kernel": 300, "train_step": 240, "fit": 420,
           "mha_kernels": 240, "mha_serve": 420, "sideface_serve": 300,
-          "data_fit": 420, "export": 300, "raster": 300}
+          "data_fit": 420, "export": 300, "raster": 300, "parallel": 420}
 PHASES = tuple(BUDGET)
 
 # tolerances (the plain versions accumulate in f32 like the kernels; the
@@ -3353,6 +3378,693 @@ def phase_raster(sf_infos, train_infos, tmp):
     return res
 
 
+# -------------------------------------------------------- phase parallel
+# The parallel layer (`parallel/`) on one card. NCCL refuses two ranks on
+# one device, so a world of several ranks is a gloo group of processes
+# that all hold cuda:0: the tensors stay on the card and gloo stages the
+# collectives through the host (its times are no multi-GPU figure). One
+# one-rank NCCL world runs the same trainer code.
+PARALLEL_WORLD_TIMEOUT = 300    # s: each group's timeout, and a world's wait
+SEQ_LEN = 1216                  # the encoder's 1199 tokens padded for 2 ranks
+REF_STEPS = 3                   # train_complete.yaml steps of 64 rows
+# the overfit drive of the verify recipe (.claude/skills/verify): its tiny
+# model with 64-wide heads (the CUDA kernels take Dh = 64 only)
+OVERFIT_ROWS, OVERFIT_STEPS, OVERFIT_DROP = 8, 300, 5.0
+OVERFIT_MODEL = {"NUM_MODEL": 128, "NUM_HEAD": 2, "NUM_KV_HEAD": 0,
+                 "NUM_FEEDFORWARD": 256, "NUM_ENCODER_LAYERS": 1,
+                 "NUM_DECODER_LAYERS": 1, "DROPOUT": 0.0}
+
+
+def _start_world(tag, jobs, tmp, backend="gloo"):
+    """Start one worker process per job (`chip_smoke.py --worker`), ranks
+    0..n-1 of one process group; returns (tag, [(Popen, log path)])."""
+    spec = os.path.join(tmp, f"world_{tag}.json")
+    with open(spec, "w") as f:
+        json.dump({"init": f"file://{tmp}/rdv_{tag}", "backend": backend,
+                   "jobs": jobs}, f)
+    procs = []
+    for i in range(len(jobs)):
+        path = os.path.join(tmp, f"world_{tag}.{i}.log")
+        with open(path, "w") as out:
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--worker", spec,
+                 str(i)], stdout=out, stderr=subprocess.STDOUT), path))
+    return tag, procs
+
+
+def _wait_world(world):
+    """Wait for every rank; when one fails or the world outlasts
+    PARALLEL_WORLD_TIMEOUT, stop them all and fail with their last
+    lines."""
+    tag, procs = world
+    deadline = time.monotonic() + PARALLEL_WORLD_TIMEOUT
+    failed = False
+    for p, _ in procs:
+        try:
+            failed = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            failed = True
+        if failed:
+            break
+    if failed:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for i, (p, path) in enumerate(procs):
+            with open(path) as f:
+                log(f"--- {tag} rank {i} (exit {p.returncode}):\n"
+                    + "".join(f.readlines()[-30:]))
+        check(False, f"parallel: world {tag} failed")
+
+
+def _run_world(tag, jobs, tmp, backend="gloo"):
+    """Run one world to its end; returns its wall seconds."""
+    t0 = time.perf_counter()
+    _wait_world(_start_world(tag, jobs, tmp, backend))
+    return time.perf_counter() - t0
+
+
+def _result(job):
+    with open(job["out"]) as f:
+        return json.load(f)
+
+
+def worker_main(spec_path, index):
+    """One rank of a world that `_start_world` started: join its group on
+    cuda:0, run its job, write the job's result."""
+    import datetime
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        spec["backend"], init_method=spec["init"],
+        world_size=len(spec["jobs"]), rank=index,
+        timeout=datetime.timedelta(seconds=PARALLEL_WORLD_TIMEOUT))
+    try:
+        job = spec["jobs"][index]
+        res = globals()[f"job_{job['fn']}"](**job["args"])
+        with open(job["out"], "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _lengths(cfg, root, names):
+    from plankassembly_tpu_torch.data.line_data import LineDataset
+    ds = LineDataset(root, names, cfg)
+    return np.array([int((~ds[i]["input_mask"]).sum())
+                     for i in range(len(ds))])
+
+
+def _golden_batch(cfg, root, names):
+    from plankassembly_tpu_torch.data.line_data import LineDataset
+    from plankassembly_tpu_torch.data.loader import collate
+    ds = LineDataset(root, names, cfg)
+    batch = collate([ds[i] for i in range(len(names))])
+    return {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()
+            if isinstance(v, np.ndarray)}
+
+
+def job_step(root, names, runs, num_data=1, num_model=1):
+    """The ep221 step of `phase_train_step` (kernels on) on a (num_data,
+    num_model) mesh, or in one process outside a group: for each run
+    (tag, dtype, dropout, seed), the global loss and accuracy, the norm
+    and probe of each whole leaf's gradient, kernel 3's launches on this
+    rank and this rank's `encoder/self_attn/wq` shard shape."""
+    import dataclasses
+    from plankassembly_tpu_torch.checkpoint import load_checkpoint
+    from plankassembly_tpu_torch.config import ModelDims
+    from plankassembly_tpu_torch.models.model import train_step_loss
+    from plankassembly_tpu_torch.ops import flash_train as FT
+    from plankassembly_tpu_torch.parallel.mesh import (
+        check_tensor_parallel, gather_leaf, make_mesh, shard_params,
+        spec_for_path,
+    )
+    from plankassembly_tpu_torch.parallel.multihost import owned_row_range
+    from plankassembly_tpu_torch.train.state import (
+        reduce_gradients, tree_leaves,
+    )
+
+    params, cfg = load_checkpoint(CKPT, device=DEVICE)
+    check_tensor_parallel(ModelDims.from_config(cfg), num_model)
+    mesh = make_mesh(num_data, num_model)
+    mesh = mesh if mesh.data_group is not None else None
+    lo, hi = owned_row_range(len(names), mesh)
+    rows = {k: v[lo:hi] for k, v in _golden_batch(cfg, root, names).items()}
+    local = shard_params(params, mesh) if mesh else params
+    tp = mesh is not None and mesh.tensor_parallel
+    out = {}
+    for tag, dtype, dropout, seed in runs:
+        dims = dataclasses.replace(ModelDims.from_config(cfg),
+                                   dropout=dropout)
+        leaves = [("/".join(p), t.detach().clone().requires_grad_())
+                  for p, t in tree_leaves(local)]
+        tree = {}
+        for path, t in leaves:
+            node = tree
+            for part in path.split("/")[:-1]:
+                node = node.setdefault(part, {})
+            node[path.split("/")[-1]] = t
+        FT.fwd_launches = FT.bwd_launches = 0
+        loss, mets = train_step_loss(
+            tree, rows, dims, rng=torch.Generator(DEVICE).manual_seed(seed),
+            deterministic=False, compute_dtype=getattr(torch, dtype),
+            flash=True, mesh=mesh)
+        loss.backward()
+        reduce_gradients(tree, mesh)
+        launches = [FT.fwd_launches, FT.bwd_launches]
+        norms, probes = [], []
+        for i, (path, t) in enumerate(leaves):
+            g = t.grad if mesh is None else gather_leaf(
+                t.grad, spec_for_path(path, tp), mesh)
+            g = g.double()
+            probe = torch.from_numpy(np.random.default_rng(i).standard_normal(
+                tuple(g.shape))).to(DEVICE)
+            norms.append(g.norm().item())
+            probes.append((g * probe).sum().item())
+        out[tag] = {"loss": mets["loss"].item(),
+                    "accuracy": float(mets["accuracy"]), "norms": norms,
+                    "probes": probes, "launches": launches,
+                    "names": [p for p, _ in leaves],
+                    "wq_local": list(dict(leaves)[
+                        "encoder/self_attn/wq"].shape)}
+    return out
+
+
+def _golden_errors(run, golden, tag):
+    """(loss rel, accuracy abs, worst norm rel, worst probe err/norm,
+    key-bias norm/max) of a `job_step` run against the JAX golden, as
+    `phase_train_step` reckons them."""
+    g_loss, g_acc = float(golden[f"loss_{tag}"]), float(
+        golden[f"accuracy_{tag}"])
+    worst_norm = worst_probe = worst_bk = 0.0
+    for i, path in enumerate(run["names"]):
+        norm = run["norms"][i]
+        if path.endswith("/bk"):
+            worst_bk = max(worst_bk, norm / float(
+                golden[f"grad_norm_{tag}"].max()))
+            continue
+        ref = float(golden[f"grad_norm_{tag}"][i])
+        worst_norm = max(worst_norm, abs(norm - ref) / ref)
+        worst_probe = max(worst_probe, abs(
+            run["probes"][i] - float(golden[f"grad_probe_{tag}"][i])) / ref)
+    return (abs(run["loss"] - g_loss) / g_loss,
+            abs(run["accuracy"] - g_acc), worst_norm, worst_probe, worst_bk)
+
+
+def _check_golden(tag, run, golden):
+    for dt in ("f32", "bf16"):
+        errs = _golden_errors(run[dt], golden, dt)
+        log(f"parallel {tag} {dt} ep221 B={len(golden['names'])} dropout 0 "
+            f"vs the JAX golden: loss rel {errs[0]:.2e}, acc {errs[1]:.2e}, "
+            f"norm {errs[2]:.2e}, probe {errs[3]:.2e}, bk {errs[4]:.2e}; "
+            f"kernel 3 launches fwd/bwd {run[dt]['launches']} a rank")
+        for e, key in zip(errs, ("loss", "acc", "norm", "probe", "bk")):
+            check(e <= STEP_TOL[dt][key], f"parallel {tag} {dt}: {key} {e}")
+
+
+def _against(run, ref):
+    """(loss rel, worst norm rel, worst probe err/norm) of run vs ref."""
+    worst_norm = worst_probe = 0.0
+    for i, path in enumerate(ref["names"]):
+        r = ref["norms"][i]
+        if path.endswith("/bk"):
+            continue
+        worst_norm = max(worst_norm, abs(run["norms"][i] - r) / r)
+        worst_probe = max(worst_probe,
+                          abs(run["probes"][i] - ref["probes"][i]) / r)
+    return (abs(run["loss"] - ref["loss"]) / ref["loss"], worst_norm,
+            worst_probe)
+
+
+def job_seq_encoder(root, names, out_dir, num_seq=1):
+    """ep221's encoder on the golden batch with its length axis split over
+    a (1, num_seq) seq mesh (outside a group: the whole stack), f32 and
+    bf16; rank 0 saves the memory. Returns flash_attention's launches."""
+    import torch.distributed as dist
+    from plankassembly_tpu_torch.checkpoint import load_checkpoint
+    from plankassembly_tpu_torch.config import ModelDims
+    from plankassembly_tpu_torch.models.model import encode
+    from plankassembly_tpu_torch.ops import attention as A
+    from plankassembly_tpu_torch.parallel.mesh import make_seq_mesh
+
+    params, cfg = load_checkpoint(CKPT, device=DEVICE)
+    dims = ModelDims.from_config(cfg)
+    mesh = make_seq_mesh(1, num_seq) if dist.is_initialized() else None
+    batch = _golden_batch(cfg, root, names)
+    inputs = {k: v for k, v in batch.items() if k.startswith("input")}
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        A.launches = 0
+        with torch.no_grad():
+            memory = encode(params, inputs, dims,
+                            compute_dtype=getattr(torch, dtype), flash=True,
+                            seq_mesh=mesh)
+        torch.cuda.synchronize()
+        out[dtype] = A.launches
+        if mesh is None or mesh.seq_rank == 0:
+            torch.save(memory.float().cpu(), os.path.join(
+                out_dir, f"memory_{dtype}_{num_seq}.pt"))
+    return out
+
+
+def _trainer_run(root, splits, log_root, overrides, reload=None,
+                 evaluate=True):
+    """configs/train_complete.yaml as published through the port's
+    Trainer, its data on the unpacked fixtures and `overrides` on top:
+    REF_STEPS steps from init (none with `reload`, a checkpoint to load),
+    the data group's all-reduce of one step's gradients timed, then
+    validation and test on the serving drawings."""
+    from plankassembly_tpu_torch.config import load_config
+    from plankassembly_tpu_torch.ops import flash_train as FT
+    from plankassembly_tpu_torch.train import loop
+    from plankassembly_tpu_torch.train.state import (
+        reduce_gradients, tree_leaves,
+    )
+
+    over = {"model.hparams.ROOT": root,
+            "model.hparams.DATASETS_TRAIN": splits["train"],
+            "model.hparams.DATASETS_VALID": splits["serve"],
+            "model.hparams.DATASETS_TEST": splits["serve"],
+            "trainer.max_epochs": str(REF_STEPS),
+            "trainer.check_val_every_n_epoch": "1000",
+            "trainer.log_every_n_steps": "1",
+            "trainer.default_root_dir": log_root, **overrides}
+    cfg = load_config(os.path.join(ROOT, "configs", "train_complete.yaml"),
+                      over)
+    trainer = loop.Trainer(cfg, device=DEVICE)
+    res = {"log_dir": trainer.log_dir, "global_batch": trainer.global_batch,
+           "mesh": [trainer.mesh.num_data, trainer.mesh.num_model]}
+    written = []
+    dump = loop._dump
+
+    def recording_dump(pred_dir, name, payload):
+        if pred_dir is not None:
+            written.append(name)
+        dump(pred_dir, name, payload)
+
+    loop._dump = recording_dump
+    try:
+        if reload is None:
+            FT.fwd_launches = FT.bwd_launches = 0
+            state = trainer.fit(trainer.init_state())
+            torch.cuda.synchronize()
+            res["launches"] = [FT.fwd_launches, FT.bwd_launches]
+            res["grad_bytes"] = sum(t.numel() * 4 for _, t in
+                                    tree_leaves(state.params))
+            mesh = trainer._step_mesh
+            res["allreduce_ms"] = host_ms(
+                lambda: (reduce_gradients(state.params, mesh),
+                         torch.cuda.synchronize()), reps=3)
+            res["ckpt"] = os.path.join(trainer.log_dir, "checkpoints",
+                                       "last")
+        else:
+            state = trainer.load_checkpoint(reload)
+        if evaluate:
+            res["val"] = list(trainer.validate(state))
+            res["test"] = list(trainer.test(state))
+            res["written"] = written
+    finally:
+        trainer.close()
+        loop._dump = dump
+    return res
+
+
+def job_reference(root, splits, log_root, overrides=None, evaluate=True):
+    """train_complete.yaml on this world: as published on 4 ranks (16 rows
+    each), with `overrides` (its batch) on fewer."""
+    return _trainer_run(root, splits, log_root, overrides or {},
+                        evaluate=evaluate)
+
+
+def job_one_rank(root, splits, log_root, reload, step):
+    """The one-rank NCCL world: train_complete.yaml at B=64 from init, the
+    4-rank run's checkpoint `reload` validated and tested, and the golden
+    step (`job_step` arguments `step`)."""
+    b64 = {"model.hparams.BATCH_SIZE": "64"}
+    fit = _trainer_run(root, splits, os.path.join(log_root, "fit"), b64,
+                       evaluate=False)
+    ev = _trainer_run(root, splits, os.path.join(log_root, "reload"), b64,
+                      reload=reload)
+    return {"fit": fit, "reload": ev, "step": job_step(**step)}
+
+
+def job_overfit(root, split, log_root):
+    """The overfit drive of the verify recipe under dp=2: the tiny model
+    (OVERFIT_MODEL) on the 8 shortest training drawings, 4 a rank, LR
+    1e-3, OVERFIT_STEPS steps, dropout 0, no augmentation; then the
+    validation F1 and each row's greedy program, attach pointers
+    included, against its ground truth."""
+    import dataclasses
+    from plankassembly_tpu_torch.config import Config
+    from plankassembly_tpu_torch.parallel import multihost
+    from plankassembly_tpu_torch.train import loop
+
+    cfg = Config()
+    cfg = dataclasses.replace(
+        cfg, ROOT=root, DATASETS_TRAIN=split, DATASETS_VALID=split,
+        DATASETS_TEST=split, BATCH_SIZE=OVERFIT_ROWS // 2, LR=1e-3,
+        NUM_WORKERS=0,
+        DATA=dataclasses.replace(cfg.DATA, AUG_RATIO=0.0),
+        MODEL=dataclasses.replace(cfg.MODEL, **OVERFIT_MODEL),
+        trainer=dataclasses.replace(
+            cfg.trainer, devices=2, max_epochs=OVERFIT_STEPS,
+            check_val_every_n_epoch=OVERFIT_STEPS, log_every_n_steps=1,
+            default_root_dir=log_root))
+    trainer = loop.Trainer(cfg, device=DEVICE)
+    try:
+        t0 = time.perf_counter()
+        state = trainer.fit(trainer.init_state())
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        f1 = trainer.validate(state)[2]
+        same = rows = 0
+        loader = trainer.val_dataloader()
+        try:
+            for batch in loader:
+                _, out = trainer._decode_batch(state, batch)
+                samples = out["samples"].cpu().numpy()
+                attach = out["attach"].cpu().numpy()
+                for i in np.flatnonzero(batch["sample_valid"]):
+                    value = batch["output_value"][i]
+                    label = batch["output_label"][i]
+                    n = int(np.flatnonzero(value == cfg.TOKEN.END)[0]) + 1
+                    want = np.where(label >= cfg.DATA.VOCAB_SIZE,
+                                    label - cfg.DATA.VOCAB_SIZE, -1)
+                    same += bool((samples[i, :n] == value[:n]).all()
+                                 and (attach[i, :n] == want[:n]).all())
+                    rows += 1
+        finally:
+            loader.close()
+        same, rows = multihost.host_allsum([same, rows],
+                                           trainer.mesh.host_data_group)
+        return {"f1": f1, "identical": int(same), "rows": int(rows),
+                "fit_s": fit_s, "log_dir": trainer.log_dir}
+    finally:
+        trainer.close()
+
+
+def _seq_kernel(lengths, dtype):
+    """flash_attention at the seq-parallel shape (8 heads over 2, Lq =
+    SEQ_LEN/2 queries against SEQ_LEN keys, the drawings' lengths) against
+    its plain version in f32 element by element, timed, with its bound."""
+    from plankassembly_tpu_torch.ops import attention as A
+    B, Lq, L = len(lengths), SEQ_LEN // 2, SEQ_LEN
+    g = torch.Generator(device=DEVICE).manual_seed(L)
+    q = torch.randn((B, 8, Lq, 64), generator=g, device=DEVICE).to(dtype)
+    k = torch.randn((B, 2, L, 64), generator=g, device=DEVICE).to(dtype)
+    v = torch.randn((B, 2, L, 64), generator=g, device=DEVICE).to(dtype)
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device=DEVICE)
+    got = A.flash_attention(q, k, v, lens)
+    ref = A.flash_attention_reference(q.float(), k.float(), v.float(), lens)
+    torch.cuda.synchronize()
+    res = {"err": (got.float() - ref).abs().max().item(),
+           "elem": _train_err(got, ref, dtype)}
+    del ref
+    res["ms"] = cuda_ms(lambda: A.flash_attention(q, k, v, lens))
+    res["plain_ms"] = cuda_ms(lambda: A.flash_attention_reference(
+        q, k, v, lens), reps=3, warmup=1)
+    col = torch.arange(L, device=DEVICE)
+    mask = (col[None, :] < lens[:, None])[:, None, None, :]
+    res["library_ms"] = cuda_ms(_sdpa(q, k, v, mask))
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
+        + B * 4
+    flops = 4.0 * 64 * 8 * Lq * float(np.minimum(lengths, L).sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    res["bound_ms"] = max(t_bytes, t_ops)
+    res["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return res
+
+
+def _steps_ms(log_dir):
+    """(losses, host-clock ms per step over steps 2..n) of a short run."""
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    steps = [r for r in recs if "train/loss" in r]
+    times = [r["time"] for r in steps]
+    return ([r["train/loss"] for r in steps],
+            (times[-1] - times[0]) / max(1, len(times) - 1) * 1e3)
+
+
+def _programs(log_dir):
+    """{name: [prediction, attach]} of a test run's JSONs."""
+    pred_dir = os.path.join(log_dir, "pred_jsons")
+    out = {}
+    for fn in sorted(os.listdir(pred_dir)):
+        with open(os.path.join(pred_dir, fn)) as f:
+            d = json.load(f)
+        out[fn] = [d["prediction"], d["attach"]]
+    return out
+
+
+def phase_parallel(params, cfg, train_infos, serve_infos, tmp):
+    from plankassembly_tpu_torch.export import export_serving
+
+    card = card_line()
+    golden = np.load(os.path.join(FIXTURES, "train_step_jax_golden.npz"))
+    n = len(golden["names"])
+    root = os.path.join(tmp, "parallel_data")
+    os.makedirs(root)
+    splits = {}
+    for split, infos in (("train", train_infos), ("serve", serve_infos),
+                         ("overfit", sorted(train_infos, key=lambda i: len(
+                             i["lines"]))[:OVERFIT_ROWS])):
+        splits[split] = os.path.join(tmp, f"parallel_{split}.txt")
+        with open(splits[split], "w") as f:
+            f.write("".join(x + "\n" for x in _unpack_infos(infos, root)))
+    names = [f"{i['name']}.json" for i in train_infos[:n]]
+    check([x[:-5] for x in names] == list(golden["names"]),
+          "parallel: not the golden's drawings")
+    out_dir = os.path.join(tmp, "parallel_out")
+    os.makedirs(out_dir)
+    torch.cuda.empty_cache()
+
+    def jobs(fn, count, tag, **args):
+        return [{"fn": fn, "args": args,
+                 "out": os.path.join(out_dir, f"{tag}.{r}.json")}
+                for r in range(count)]
+
+    step = dict(root=root, names=names,
+                runs=[("f32", "float32", 0.0, 0), ("bf16", "bfloat16", 0.0, 0),
+                      ("d02", "float32", 0.2, TRAIN_SEED)])
+    worlds = {"dp2": jobs("step", 2, "dp2", num_data=2, **step),
+              "tp2": jobs("step", 2, "tp2", num_model=2, **step),
+              "seq2": jobs("seq_encoder", 2, "seq2", root=root, names=names,
+                           out_dir=out_dir, num_seq=2),
+              "overfit": jobs("overfit", 2, "overfit", root=root,
+                              split=splits["overfit"],
+                              log_root=os.path.join(tmp, "overfit_runs"))}
+    # the worlds that check values run side by side, beside this process's
+    # one-process references; the timed worlds run alone
+    t0 = time.perf_counter()
+    started = [_start_world(tag, js, tmp) for tag, js in worlds.items()]
+    one = job_step(**step)
+    one_seq = job_seq_encoder(root, names, out_dir)
+    for w in started:
+        _wait_world(w)
+    side_s = time.perf_counter() - t0
+    res = {}
+
+    # the step against the JAX golden, and at dropout 0.2 against one
+    # process with the same seed
+    for tag in ("dp2", "tp2"):
+        ranks = [_result(j) for j in worlds[tag]]
+        check(all(r["f32"]["loss"] == ranks[0]["f32"]["loss"]
+                  for r in ranks), f"parallel {tag}: the ranks' losses")
+        run = ranks[0]
+        _check_golden(tag, run, golden)
+        d = _against(run["d02"], one["d02"])
+        log(f"parallel {tag} f32 dropout 0.2 vs one process, seed "
+            f"{TRAIN_SEED}: loss rel {d[0]:.2e}, norm {d[1]:.2e}, probe "
+            f"{d[2]:.2e} (tol {STEP_TOL['f32']['loss']:g}, "
+            f"{STEP_TOL['f32']['norm']:g}, {STEP_TOL['f32']['probe']:g})")
+        tol = STEP_TOL["f32"]
+        check(d[0] <= tol["loss"] and d[1] <= tol["norm"]
+              and d[2] <= tol["probe"],
+              f"parallel {tag}: dropout 0.2 differs from one process")
+        res[tag] = {"launches": run["bf16"]["launches"],
+                    "wq_local": run["f32"]["wq_local"], "d02": d}
+    layers = 6 + 2 * 6
+    check(res["tp2"]["launches"] == [layers, layers]
+          and res["tp2"]["wq_local"] == [6, 512, 256],
+          f"parallel tp2: launches and shard {res['tp2']}")
+
+    # the seq-parallel encoder against one process's
+    seq = [_result(j) for j in worlds["seq2"]]
+    worst = {}
+    for dtype in ("float32", "bfloat16"):
+        got = torch.load(os.path.join(out_dir, f"memory_{dtype}_2.pt"))
+        ref = torch.load(os.path.join(out_dir, f"memory_{dtype}_1.pt"))
+        check(got.shape == ref.shape, "parallel seq2: memory shape")
+        if dtype == "float32":
+            worst[dtype] = (got - ref).abs().max().item()
+            ok = worst[dtype] <= FLASH_TOL[torch.float32]
+        else:
+            worst[dtype] = _train_err(got, ref, torch.bfloat16)
+            ok = worst[dtype] <= 1.0
+        check(ok, f"parallel seq2 {dtype}: memory differs ({worst[dtype]})")
+    seq_launches = seq[0]["bfloat16"]
+    check(seq_launches == one_seq["bfloat16"] == 6,
+          f"parallel seq2: flash_attention launches {seq_launches}")
+    log(f"parallel seq2 ep221 encoder B={n}, {SEQ_LEN // 2} query rows a "
+        f"rank against {SEQ_LEN} keys: f32 max abs diff "
+        f"{worst['float32']:.2e} (tol {FLASH_TOL[torch.float32]:g}), bf16 "
+        f"err over the element bound {worst['bfloat16']:.2e}; "
+        f"flash_attention launches {seq_launches} a rank")
+
+    # the overfit drive under dp=2
+    ov = _result(worlds["overfit"][0])
+    with open(os.path.join(ov["log_dir"], "metrics.jsonl")) as f:
+        losses = [r["train/loss"] for r in map(json.loads, f)
+                  if "train/loss" in r]
+    drop = losses[0] / losses[-1]
+    log(f"parallel overfit dp=2 (verify recipe, {OVERFIT_MODEL}, "
+        f"{OVERFIT_ROWS} drawings, {len(losses)} steps): loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} ({drop:.1f}x), F1 "
+        f"{ov['f1']:.4f}, programs with attach identical {ov['identical']}/"
+        f"{ov['rows']}; fit {ov['fit_s']:.1f} s beside the other worlds; "
+        f"side-by-side worlds {side_s:.1f} s")
+    check(drop > OVERFIT_DROP, f"parallel overfit: loss fell {drop:.1f}x")
+    check(ov["f1"] == 1.0 and ov["identical"] == ov["rows"] == OVERFIT_ROWS,
+          "parallel overfit: the programs are not reproduced")
+    res["overfit"] = {"drop": drop, "f1": ov["f1"], "fit_s": ov["fit_s"]}
+
+    # the reference config on 4 gloo ranks, then one NCCL rank
+    ref_jobs = jobs("reference", 4, "ref4", root=root, splits=splits,
+                    log_root=os.path.join(tmp, "ref4_runs"))
+    ref4_s = _run_world("ref4", ref_jobs, tmp)
+    ref4 = [_result(j) for j in ref_jobs]
+    ref2_jobs = jobs("reference", 2, "ref2", root=root, splits=splits,
+                     log_root=os.path.join(tmp, "ref2_runs"),
+                     overrides={"model.hparams.BATCH_SIZE": "32"},
+                     evaluate=False)
+    _run_world("ref2", ref2_jobs, tmp)
+    ref2 = _result(ref2_jobs[0])
+    r0 = ref4[0]
+    check(r0["global_batch"] == 64 and r0["mesh"] == [4, 1],
+          f"parallel ref4: global batch {r0['global_batch']}, mesh "
+          f"{r0['mesh']}")
+    one_jobs = jobs("one_rank", 1, "nccl1", root=root, splits=splits,
+                    log_root=os.path.join(tmp, "nccl1_runs"),
+                    reload=r0["ckpt"], step=step)
+    nccl_s = _run_world("nccl1", one_jobs, tmp, backend="nccl")
+    nccl = _result(one_jobs[0])
+    _check_golden("nccl1", nccl["step"], golden)
+    ref1, reload1 = nccl["fit"], nccl["reload"]
+    l4, ms4 = _steps_ms(r0["log_dir"])
+    l2, ms2 = _steps_ms(ref2["log_dir"])
+    l1, ms1 = _steps_ms(ref1["log_dir"])
+    rel = max(abs(a - b) / b for a, b in zip(l4 + l2, l1 + l1))
+    log(f"parallel ref4 configs/train_complete.yaml (MHA, devices 4, "
+        f"BATCH_SIZE 16, dropout 0.2, AUG_RATIO 0.1) on 4 gloo ranks of one "
+        f"card: losses {' '.join(f'{x:.5f}' for x in l4)}; 2 gloo ranks of "
+        f"32: {' '.join(f'{x:.5f}' for x in l2)}; one NCCL rank B=64: "
+        f"{' '.join(f'{x:.5f}' for x in l1)}; worst rel {rel:.2e} (bf16 tol "
+        f"{STEP_TOL['bf16']['loss']:g}); ms a step (steps 2-{REF_STEPS}, "
+        f"host clock) 4 ranks {ms4:.1f}, 2 ranks {ms2:.1f}, 1 rank "
+        f"{ms1:.1f}; the gradient all-reduce ({r0['grad_bytes'] / 1e6:.1f} "
+        f"MB) 4 gloo ranks {r0['allreduce_ms']:.1f} ms, 2 gloo ranks "
+        f"{ref2['allreduce_ms']:.1f} ms, 1 NCCL rank "
+        f"{ref1['allreduce_ms']:.2f} ms; kernel 3 launches fwd/bwd on rank 0"
+        f" {r0['launches']}, one rank {ref1['launches']}; world wall 4 ranks"
+        f" {ref4_s:.1f} s, 1 rank {nccl_s:.1f} s; {card}")
+    check(len(l4) == len(l2) == len(l1) == REF_STEPS, "parallel ref: steps")
+    check(rel <= STEP_TOL["bf16"]["loss"], f"parallel ref: losses {rel}")
+    check(min(r0["launches"] + ref1["launches"]) > 0,
+          "parallel ref: kernel 3 did not run")
+    written = [set(r["written"]) for r in ref4]
+    check(sum(len(w) for w in written) == len(set().union(*written))
+          == len(serve_infos),
+          f"parallel ref4: prediction JSONs {[len(w) for w in written]}")
+    p4, p1 = _programs(r0["log_dir"]), _programs(reload1["log_dir"])
+    same = sum(p4.get(k) == p for k, p in p1.items())
+    log(f"parallel ref4 validation on the {len(serve_infos)} serving "
+        f"drawings: P/R/F1 {r0['val']} (4 ranks) vs {reload1['val']} (one "
+        f"rank, the same checkpoint); test JSONs a rank "
+        f"{[len(w) for w in written]}, programs identical {same}/{len(p1)}")
+    check(same == len(p1) == len(serve_infos), "parallel ref4: programs")
+    check(abs(r0["val"][2] - reload1["val"][2]) <= 1e-9
+          and abs(r0["test"][2] - reload1["test"][2]) <= 1e-9,
+          "parallel ref4: F1 differs from one rank's")
+    res["ref"] = {"ms4": ms4, "ms2": ms2, "ms1": ms1,
+                  "allreduce_ms": r0["allreduce_ms"],
+                  "allreduce_ms2": ref2["allreduce_ms"],
+                  "allreduce_ms_nccl1": ref1["allreduce_ms"],
+                  "loss_rel": rel, "launches4": r0["launches"],
+                  "launches1": ref1["launches"]}
+
+    # kernels 3 and 1 at their new shapes, the card to themselves
+    lens = _lengths(cfg, root, [f"{i['name']}.json" for i in train_infos])
+    tp = train_kernel_case("encoder self tp=2", 4, 1, 1199, 1199, False,
+                           lens, torch.bfloat16, 0.2, timing=True)
+    check(max(tp["errs"].values()) <= 1.0
+          and max(tp["edge_errs"].values()) <= 1.0
+          and min(tp["flip_errs"].values()) > 1.0,
+          "parallel: kernel 3 at the tp=2 shape")
+    log(f"parallel kernel 3 at the tp=2 shape B=64 H=4 Hkv=1 L=1199 bf16 "
+        f"rate 0.2: fwd {tp['ms']:.3f} ms (plain {tp['plain_ms']:.3f}, bound "
+        f"{tp['bound_ms']:.4f} {tp['bound_by']}), bwd {tp['bwd_ms']:.3f} ms "
+        f"(plain {tp['plain_bwd_ms']:.3f}, bound {tp['bwd_bound_ms']:.4f}); "
+        f"err over its bound {max(tp['errs'].values()):.2e}, max abs "
+        f"{max(tp['abs_errs'].values()):.2e}")
+    sk = _seq_kernel(lens[:n], torch.bfloat16)
+    check(sk["elem"] <= 1.0, f"parallel: kernel 1 at the seq shape {sk}")
+    log(f"parallel kernel 1 at the seq shape B={n} H=8 Hkv=2 Lq="
+        f"{SEQ_LEN // 2} Lk={SEQ_LEN} bf16: {sk['ms']:.4f} ms (plain "
+        f"{sk['plain_ms']:.3f}, sdpa {sk['library_ms']:.4f}, bound "
+        f"{sk['bound_ms']:.4f} {sk['bound_by']}); err over its bound "
+        f"{sk['elem']:.2e}, max abs {sk['err']:.2e}")
+    res.update(tp_kernel=tp, seq_kernel=sk, seq_launches=seq_launches)
+
+    # the global-shape dropout draws: a dp=4 rank of the reference fit
+    # draws 64 rows where its share is 16, at each encoder site (2
+    # residuals of width 512 and the FFN hidden of 1024 a layer)
+    gen = torch.Generator(DEVICE).manual_seed(0)
+    draw = {(rows, width): cuda_ms(lambda: torch.rand(
+        (rows, 1199, width), generator=gen, device=DEVICE))
+        for rows in (16, 64) for width in (512, 1024)}
+    extra = sum(k * (draw[(64, w)] - draw[(16, w)])
+                for k, w in ((12, 512), (6, 1024)))
+    log("parallel dropout draws, ms (rows, width): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in draw.items())
+        + f"; a dp=4 rank's extra over its own share {extra:.3f} ms a step "
+        f"(the 18 encoder sites)")
+    res["dropout_draw"] = {"ms": {f"{r}x{w}": v for (r, w), v in
+                                  draw.items()}, "extra_ms": extra}
+
+    # a data-parallel artifact needs its devices
+    try:
+        export_serving(params, cfg, batch=EXPORT_BATCH, bucket=512,
+                       data_parallel=2)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    log(f"parallel export_serving(data_parallel=2) on one card: "
+        f"{refused!r}")
+    check("visible devices" in refused, "parallel: export did not refuse")
+    note("parallel", f"dp2/tp2/nccl1 within STEP_TOL of the JAX golden; "
+         f"dropout 0.2 loss rel dp2 {res['dp2']['d02'][0]:.1e} tp2 "
+         f"{res['tp2']['d02'][0]:.1e}; train_complete 4 ranks vs 1 loss rel "
+         f"{rel:.1e}, ms/step 4/2/1 ranks {ms4:.0f}/{ms2:.0f}/{ms1:.0f}, "
+         f"all-reduce 4/2 ranks {r0['allreduce_ms']:.0f}/"
+         f"{ref2['allreduce_ms']:.0f} ms; draw extra "
+         f"{res['dropout_draw']['extra_ms']:.2f} ms; seq2 f32 "
+         f"{worst['float32']:.1e}; "
+         f"overfit {drop:.0f}x F1 {ov['f1']:.2f}; kernel 3 tp fwd/bwd "
+         f"{tp['ms']:.2f}/{tp['bwd_ms']:.2f} ms; kernel 1 seq "
+         f"{sk['ms']:.3f} ms")
+    return res
+
+
 def summarize(res):
     """One line per phase that ran with its headline numbers, kept short:
     they stand in the last lines of the output."""
@@ -3429,6 +4141,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
+    if sys.argv[1:2] == ["--worker"]:     # a rank of the parallel phase
+        return worker_main(sys.argv[2], int(sys.argv[3]))
     args = ap.parse_args()
     phases = args.phases.split(",")
     unknown = sorted(set(phases) - set(PHASES))
@@ -3581,6 +4295,10 @@ def main() -> int:
         if "raster" in phases:
             with Phase("raster"):
                 res["raster"] = phase_raster(sf_infos, train_infos, tmp)
+        if "parallel" in phases:
+            with Phase("parallel"):
+                res["parallel"] = phase_parallel(params, cfg, train_infos,
+                                                 infos, tmp)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     summarize(res)
     if set(phases) != set(PHASES):
@@ -3675,6 +4393,26 @@ def main() -> int:
             "ms": renc[f"{prefix}ms"], "plain_ms": renc[f"plain_{prefix}ms"],
             "bound_ms": renc[f"{prefix}bound_ms"],
             "bound_by": renc[f"{prefix}bound_by"]}
+    # the parallel phase: kernel 3 at the tp=2 head shape (its launches a
+    # rank in the tp=2 step, and rank 0's in the 4-rank reference fit),
+    # kernel 1 at the seq-parallel shape (its launches a rank)
+    par = res["parallel"]
+    for i, (entry, prefix) in enumerate(((fwd, ""), (bwd, "bwd_"))):
+        tk = par["tp_kernel"]
+        entry["launches_parallel_tp2"] = par["tp2"]["launches"][i]
+        entry["launches_parallel_reference"] = par["ref"]["launches4"][i]
+        entry["tp_shape"] = {
+            "shape": "encoder self tp=2 B=64 H=4 Hkv=1 L=1199 bf16 rate 0.2",
+            "ms": tk[f"{prefix}ms"], "plain_ms": tk[f"plain_{prefix}ms"],
+            "bound_ms": tk[f"{prefix}bound_ms"],
+            "bound_by": tk[f"{prefix}bound_by"], "library_ms": None}
+    sk = par["seq_kernel"]
+    flash_entry["launches_parallel_seq2"] = par["seq_launches"]
+    flash_entry["seq_shape"] = {
+        "shape": f"seq-parallel B=8 H=8 Hkv=2 Lq={SEQ_LEN // 2} "
+                 f"Lk={SEQ_LEN} bf16",
+        **{k: sk[k] for k in ("err", "ms", "plain_ms", "library_ms",
+                              "bound_ms", "bound_by")}}
     kernels = [
         flash_entry,
         decode_entry,

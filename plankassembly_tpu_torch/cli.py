@@ -12,7 +12,15 @@
 arguments for the visible-lines, sideface and raster/ViT modalities.
 
 `--device cuda|cpu` picks the device (default cuda; without CUDA it
-raises rather than run on the CPU). `fit --ckpt_path` resumes from a
+raises rather than run on the CPU). Several processes train one model when
+the environment describes a process group (`parallel/multihost.py`), for
+instance on four GPUs of one host:
+
+    PLANK_DISTRIBUTED=1 torchrun --nproc_per_node 4 \
+        -m plankassembly_tpu_torch.trainer_complete fit --config configs/train_complete.yaml
+
+Each rank then takes `cuda:<LOCAL_RANK>` and NCCL (gloo with --device
+cpu). `fit --ckpt_path` resumes from a
 training checkpoint of the port, or starts from a released `.npz` with a
 fresh Adam state. Any other ``--dot.path value`` pair overrides the config
 (``--model.hparams.LR 2e-5``, ``--trainer.max_epochs 20``).
@@ -22,6 +30,7 @@ from __future__ import annotations
 import sys
 
 from plankassembly_tpu_torch.config import load_config
+from plankassembly_tpu_torch.parallel import multihost
 
 SUBCOMMANDS = ("fit", "test", "validate")
 
@@ -72,8 +81,10 @@ def main(argv: list[str] | None = None, trainer_cls=None):
     argv = argv if argv is not None else sys.argv[1:]
     subcommand, config_path, ckpt_path, device, overrides = parse_args(argv)
     cfg = load_config(config_path, overrides)
+    multihost.initialize_from_env(device=device)
     trainer = trainer_cls(cfg, device=device)
-    print(f"log_dir: {trainer.log_dir}", flush=True)
+    if multihost.is_main():
+        print(f"log_dir: {trainer.log_dir}", flush=True)
     try:
         state = (trainer.load_checkpoint(ckpt_path) if ckpt_path
                  else trainer.init_state())
@@ -83,7 +94,9 @@ def main(argv: list[str] | None = None, trainer_cls=None):
                   else trainer.test(state))
     finally:
         trainer.close()
-    print("precision={:.4f} recall={:.4f} fmeasure={:.4f}".format(*scores))
+    if multihost.is_main():
+        print("precision={:.4f} recall={:.4f} fmeasure={:.4f}".format(
+            *scores))
     return trainer, scores
 
 

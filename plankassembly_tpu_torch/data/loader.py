@@ -1,11 +1,14 @@
-"""Host-side batching; the single-host part of
-`plankassembly_tpu/data/loader.py`.
+"""Host-side batching (`plankassembly_tpu/data/loader.py`).
 
 Numpy collation with the JAX loader's batch order (a seeded
 `np.random.default_rng` shuffle, `drop_last`, a fixed `order`,
 `pad_to_batch`), threaded sample packing and a one-deep prefetch thread.
 Batches stay numpy on the host; the trainer moves them to its device.
-There is no sharding and no multi-host row split.
+
+In a process group every rank iterates the same global batches (the same
+seed gives the same permutation) and packs only its own rows of each,
+`rows=(lo, hi)` (`parallel.multihost.owned_row_range`), as the JAX loader
+packs its process's rows.
 """
 from __future__ import annotations
 
@@ -52,11 +55,15 @@ class DataLoader:
 
     For a dataset with `augmentation`, each read gets a RandomState of its
     own, seeded in index order from the dataset's `rng`, so what a batch
-    draws does not depend on the number of workers or their scheduling."""
+    draws does not depend on the number of workers or their scheduling.
+    The seeds of every row of the global batch are drawn, so a rank that
+    packs `rows` (lo, hi) of it packs exactly what one process packs
+    there, augmentation included."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0, order=None,
-                 num_workers: int = 0, pad_to_batch: bool = False):
+                 num_workers: int = 0, pad_to_batch: bool = False,
+                 rows: tuple[int, int] | None = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -65,18 +72,22 @@ class DataLoader:
         # pad_to_batch: a short last batch repeats row 0; the bool field
         # 'sample_valid' marks the real rows
         self.pad_to_batch = pad_to_batch
+        self.rows = rows or (0, batch_size)
         self.order = None if order is None else np.asarray(order)
         # threads, not processes: file reads and numpy release the GIL
         self.num_workers = int(num_workers)
         self._pool = None
 
     def _get_samples(self, idx) -> list[dict]:
+        """The samples of this loader's `rows` of the global batch `idx`."""
         idx = [int(i) for i in idx]
         if getattr(self.dataset, "augmentation", False):
             seeds = self.dataset.rng.randint(0, 2 ** 31 - 1, size=len(idx))
             rngs = [np.random.RandomState(s) for s in seeds]
         else:
             rngs = [None] * len(idx)
+        lo, hi = self.rows
+        idx, rngs = idx[lo:hi], rngs[lo:hi]
         if self.num_workers > 1:
             if self._pool is None:
                 from concurrent.futures import ThreadPoolExecutor
@@ -103,15 +114,20 @@ class DataLoader:
         if self.shuffle:
             order = order.copy()
             self.rng.shuffle(order)
+        lo, hi = self.rows
         for start in range(0, len(order), self.batch_size):
             idx = order[start:start + self.batch_size]
             if self.drop_last and len(idx) < self.batch_size:
                 return
+            if self.pad_to_batch:
+                # a short last batch repeats its first row
+                valid = np.arange(self.batch_size) < len(idx)
+                idx = np.concatenate([idx, np.repeat(
+                    idx[:1], self.batch_size - len(idx))])
             batch = collate(self._get_samples(idx))
             if self.pad_to_batch:
-                batch, valid = pad_batch_to(batch, self.batch_size)
-                batch["sample_valid"] = valid
-                batch["_local_valid"] = valid
+                batch["sample_valid"] = valid[lo:hi]
+                batch["_local_valid"] = valid[lo:hi]
             yield batch
 
     def __iter__(self):

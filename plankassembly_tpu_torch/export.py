@@ -26,6 +26,12 @@ without a checkpoint or a config, and `decode`, the greedy decode path.
 Greedy artifacts decode as JAX's do: ``cross_impl="mxu"`` with int8 cross
 K/V at the artifact's bucket and early exit (`plankassembly_tpu/export.py:
 138-147`); `beam >= 2` decodes by beam search (`:130-137`).
+
+`data_parallel` > 1 (JAX's SPMD artifact, `:101-116, 233-252`): a loaded
+program splits each request's batch into that many equal chunks and
+decodes each on one of the first `data_parallel` CUDA devices, which must
+be visible; on an explicit CPU device the chunks decode in turn. Rows
+decode independently, so the answers are the one-device artifact's.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ import dataclasses
 import io
 import json
 import struct
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -42,7 +49,7 @@ from plankassembly_tpu_torch.config import ModelDims
 from plankassembly_tpu_torch.decode import quantize_decoder_weights
 from plankassembly_tpu_torch.device import resolve_device
 from plankassembly_tpu_torch.serving import (
-    ARTIFACT_FORMAT, decode_backend, serving_meta,
+    ARTIFACT_FORMAT, decode_backend, pad_request, serving_meta,
 )
 from plankassembly_tpu_torch.train.state import tree_leaves
 
@@ -74,15 +81,16 @@ def export_serving(params, cfg, *, batch: int, bucket: int, beam: int = 0,
     `weight_quant=True` stores `quantize_decoder_weights(params)`, int8
     decoder and head matrices that the decode takes as they are (a
     smaller file); with_type=False is the sideface contract.
-    data_parallel > 1 raises: the port serves on one device."""
+    data_parallel > 1 serves each request's rows split over that many
+    devices; with `params` on a CUDA device, as many must be visible."""
     dims = ModelDims.from_config(cfg)
     if batch % data_parallel:
         raise ValueError(f"batch {batch} must divide over "
                          f"data_parallel={data_parallel}")
-    if data_parallel > 1:
-        from plankassembly_tpu_torch.train.loop import PARALLEL_TODO
-        raise NotImplementedError(
-            f"data_parallel={data_parallel}: {PARALLEL_TODO}")
+    device = next(t for _, t in tree_leaves(params)).device
+    if data_parallel > 1 and device.type == "cuda":
+        _check_visible(data_parallel, "data_parallel="
+                       f"{data_parallel} needs that many visible devices")
     if bucket > cfg.DATA.MAX_INPUT_LENGTH - 1:
         raise ValueError(
             f"bucket {bucket} exceeds the model's trained input width "
@@ -96,9 +104,16 @@ def export_serving(params, cfg, *, batch: int, bucket: int, beam: int = 0,
                         compute_dtype=compute_dtype, device="cuda",
                         early_exit=early_exit,
                         weight_quant=weight_quant, with_type=with_type)
+    meta["data_parallel"] = data_parallel
     meta["model"] = dataclasses.asdict(dims)
     meta["decode"] = {"cross_impl": GREEDY_IMPL}
     return buf.getvalue(), meta
+
+
+def _check_visible(count: int, what: str) -> None:
+    have = torch.cuda.device_count()
+    if have < count:
+        raise ValueError(f"{what}; {have} visible devices")
 
 
 def save_artifact(path: str, blob: bytes, meta: dict) -> None:
@@ -133,18 +148,47 @@ def load_artifact(path: str, device=None) -> "ServingProgram":
 class ServingProgram:
     """A loaded artifact: validates and pads a request (`pad_request`)
     and decodes its real rows as the header says. `meta` is the header,
-    its `platforms` naming the device the weights were loaded on."""
+    its `platforms` naming the devices the weights were loaded on (the
+    first `data_parallel` CUDA devices for a data-parallel artifact on
+    CUDA)."""
 
     def __init__(self, meta: dict, params: dict, device=None):
         dev = resolve_device(device)
-        self.meta = {**meta, "platforms": [str(dev)]}
+        dp = meta.get("data_parallel", 1)
+        devices = [dev]
+        if dp > 1 and dev.type == "cuda":
+            _check_visible(dp, f"artifact was exported for {dp} devices")
+            devices = [torch.device("cuda", i) for i in range(dp)]
+        self.meta = {**meta, "platforms": [str(d) for d in devices]}
         self.dims = ModelDims(**meta["model"])
-        self.params = tree_map(
-            lambda t: t.to(dev) if t.dtype == torch.int8
-            else t.to(device=dev, dtype=torch.float32), params)
-        self._backend = decode_backend(
-            self.params, self.dims, self.meta, dev,
-            cross_impl=meta["decode"]["cross_impl"])
+        self.devices = devices
+        self._backends = []
+        for d in devices:
+            on_d = tree_map(lambda t: t.to(d) if t.dtype == torch.int8
+                            else t.to(device=d, dtype=torch.float32), params)
+            self._backends.append(decode_backend(
+                on_d, self.dims, self.meta, d,
+                cross_impl=meta["decode"]["cross_impl"]))
+        self.params = on_d
 
     def __call__(self, batch: dict) -> dict:
-        return self._backend(batch)
+        dp = self.meta.get("data_parallel", 1)
+        if dp == 1:
+            return self._backends[0](batch)
+        padded, rows = pad_request(batch, self.meta)
+        step = self.meta["batch"] // dp
+        chunks = [{k: v[lo:min(lo + step, rows)] for k, v in padded.items()}
+                  for lo in range(0, rows, step)]
+        if len(self._backends) == 1:  # the CPU: the chunks in turn
+            outs = [self._backends[0](c) for c in chunks]
+        else:
+            def run(i):
+                with torch.cuda.device(self.devices[i]):
+                    return self._backends[i](chunks[i])
+
+            with ThreadPoolExecutor(len(chunks)) as pool:
+                outs = list(pool.map(run, range(len(chunks))))
+        return {"samples": np.concatenate([o["samples"] for o in outs]),
+                "attach": np.concatenate([o["attach"] for o in outs]),
+                "num_steps": np.asarray(max(int(o["num_steps"])
+                                            for o in outs))}

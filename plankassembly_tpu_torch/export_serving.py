@@ -13,8 +13,10 @@ inserted before the --out extension, for `serve --artifact a b c`.
 against the live decode of the same weights on a random request. The
 artifact holds the weights and the serving contract, not a compiled
 program: it runs on the device it is loaded on, so `--platforms` (JAX's
-lowering targets) and `--data_parallel > 1` are refused. Without --cpu it
-runs on the GPU and raises if CUDA is absent.
+lowering targets) is refused. `--data_parallel N` splits each request's
+rows over the first N GPUs, which must be visible where it is exported
+and loaded. Without --cpu it runs on the GPU and raises if CUDA is
+absent.
 """
 from __future__ import annotations
 
@@ -54,7 +56,7 @@ def parse_args(argv=None):
     ap.add_argument("--weight_quant", action="store_true",
                     help="store int8 decoder and head weights")
     ap.add_argument("--data_parallel", type=int, default=1,
-                    help="refused above 1: the port serves on one device")
+                    help="split each request's rows over this many GPUs")
     ap.add_argument("--no_input_type", action="store_true",
                     help="sideface input contract: no line-type stream")
     ap.add_argument("--verify", action="store_true",
@@ -66,9 +68,6 @@ def parse_args(argv=None):
         ap.error("--platforms: an artifact of the port holds weights, not a "
                  "program lowered for platforms; it runs on the device it is "
                  "loaded on (--cpu for the CPU)")
-    if args.data_parallel > 1:
-        ap.error("--data_parallel > 1: the port serves on one device "
-                 "(ROADMAP.md §1, 'Parallel')")
     return args
 
 
@@ -135,6 +134,7 @@ def main(argv=None) -> list[str]:
         blob, meta = export_serving(
             params, cfg, batch=args.batch, bucket=bucket, beam=args.beam,
             compute_dtype=dtype, weight_quant=args.weight_quant,
+            data_parallel=args.data_parallel,
             with_type=not args.no_input_type)
         meta["checkpoint"] = os.path.basename(args.ckpt)
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)

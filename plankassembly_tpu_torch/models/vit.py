@@ -18,7 +18,7 @@ import torch
 from plankassembly_tpu_torch.config import ModelDims
 from plankassembly_tpu_torch.models.model import (
     NEG_INF, _default_rng, _xavier, decode_stack, embed_output, init_params,
-    run_encoder_stack, train_dists,
+    run_encoder_stack, token_loss, train_dists,
 )
 
 
@@ -73,10 +73,11 @@ def batch_images(batch: dict, vit: VitDims) -> torch.Tensor:
 
 def encode_raster(params, images, dims: ModelDims, vit: VitDims, *, rng=None,
                   deterministic=True, compute_dtype=torch.bfloat16,
-                  flash=False):
+                  flash=False, mesh=None):
     """ViT encoder: images (B, 3, S, S) -> memory (B, T, D), T = 3 (S/p)^2.
     The patch projection is a float32 product (TF32 off, PyTorch's
-    default)."""
+    default); under tensor parallelism (`mesh`) it stays replicated, as
+    every leaf outside the attention and FFN blocks."""
     emb = params["embed"]
     tokens = patchify(images.float(), vit.patch_size)
     x = tokens @ emb["patch"]  # (B, T, D)
@@ -87,21 +88,24 @@ def encode_raster(params, images, dims: ModelDims, vit: VitDims, *, rng=None,
     no_pad = torch.zeros(x.shape[:2], dtype=torch.bool, device=x.device)
     return run_encoder_stack(params, x, no_pad, dims, rng=rng,
                              deterministic=deterministic,
-                             compute_dtype=compute_dtype, flash=flash)
+                             compute_dtype=compute_dtype, flash=flash,
+                             mesh=mesh)
 
 
 def train_step_loss_raster(params, batch, dims: ModelDims, vit: VitDims, *,
                            rng=None, deterministic=False,
-                           compute_dtype=torch.bfloat16, flash=False):
+                           compute_dtype=torch.bfloat16, flash=False,
+                           mesh=None):
     """Teacher-forced NLL and token accuracy of a raster batch, as
     `model.train_step_loss` with the ViT encoder: (loss, {"loss",
-    "accuracy"})."""
+    "accuracy"}), the global batch's with a `mesh`."""
     dev = batch["output_value"].device
     if not deterministic:
         rng = _default_rng(rng, dev)
     memory = encode_raster(params, batch_images(batch, vit), dims, vit,
                            rng=rng, deterministic=deterministic,
-                           compute_dtype=compute_dtype, flash=flash)
+                           compute_dtype=compute_dtype, flash=flash,
+                           mesh=mesh)
     x = embed_output(params, batch["output_value"][:, :-1], dims)
     S = x.shape[1]
     causal = torch.triu(torch.full((S, S), NEG_INF, device=dev),
@@ -116,15 +120,9 @@ def train_step_loss_raster(params, batch, dims: ModelDims, vit: VitDims, *,
                            dims, rng=rng, deterministic=deterministic,
                            compute_dtype=compute_dtype, flash=flash,
                            self_lengths=self_lengths,
-                           cross_lengths=cross_lengths)
-    dists = train_dists(params, hiddens, dims)
-    labels = batch["output_label"].long()
-    valid = labels != dims.pad
-    label_logp = torch.gather(dists, -1, labels[..., None])[..., 0]
-    loss = -(label_logp * valid).sum() / valid.sum().clamp(min=1)
-    correct = (valid & (dists.argmax(dim=-1) == labels)).sum()
-    accuracy = correct / (valid.sum() + 1e-10)
-    return loss, {"loss": loss, "accuracy": accuracy}
+                           cross_lengths=cross_lengths, mesh=mesh)
+    return token_loss(train_dists(params, hiddens, dims),
+                      batch["output_label"], dims, mesh)
 
 
 def _memory(params, batch, dims, vit, compute_dtype):

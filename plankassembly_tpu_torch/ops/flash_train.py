@@ -69,6 +69,18 @@ def cell_seed(seed, b, h, qi):
     return (seed + b * 7919 + h * 104729 + qi * 1299721) & _M32
 
 
+def shard_seed(seed, row0: int, head0: int):
+    """The seed under which a call on rows row0.. and query heads head0..
+    of a larger call draws that call's masks: the cell seed is linear in b
+    and h, so the offsets fold into the seed (wrapping int32, on the seed's
+    device). `seed` as `fused_attention_train` takes it."""
+    off = row0 * 7919 + head0 * 104729
+    if not off:
+        return seed
+    s = (torch.as_tensor(seed).to(torch.int64) + off) & _M32
+    return torch.where(s >= 2 ** 31, s - 2 ** 32, s).to(torch.int32)
+
+
 def _hash(rc, cell):
     """The finaliser of `_dropout_mask` given rc = (r*A) ^ (c*B) mod 2^32
     and the cell seed, all int64 holding uint32 values."""

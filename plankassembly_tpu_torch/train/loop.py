@@ -18,8 +18,22 @@ clean samples from a packed-sample cache (`data/cache.py`) under
 cached training split on the device and assembles each batch there
 (`data/device_loader.py`), as in JAX.
 
+Parallelism, as JAX's: the mesh is `trainer.devices` data replicas,
+clamped to the processes there are (over `trainer.tensor_parallel` when
+`strategy` is "dp+tp"), each taking BATCH_SIZE rows of a global batch of
+BATCH_SIZE * replicas; one process per device (`parallel/multihost.py`),
+`cuda:<LOCAL_RANK>` unless the caller names a device. Logs, hparams.yaml
+and checkpoints are written by rank 0; a checkpoint holds the gathered
+parameters and Adam state, so it loads under any layout. Validation and
+test gather the parameters, decode each data replica's rows at the global
+batch's kv bucket, sum the criterion over the data group, and write each
+row's prediction JSON from model rank 0 of its replica.
+
 Differences from the JAX trainer:
-- one device, no mesh: `trainer.devices > 1` or `strategy: dp+tp` raise;
+- tensor parallelism splits whole heads and FFN units only, so
+  `tensor_parallel` must divide the query and kv heads and NUM_FEEDFORWARD;
+- `device_data` applies in a one-process world only, as in JAX; with more
+  processes the trainer takes the plain loader and says so;
 - with `trainer.fused_attention`, attention runs the fused kernels at
   every batch size on a CUDA device (the JAX trainer takes its kernel only
   on a TPU), and their plain versions on the CPU;
@@ -39,6 +53,7 @@ Differences from the JAX trainer:
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -60,14 +75,16 @@ from plankassembly_tpu_torch.metrics import (
     build_criterion, hungarian_match_host, metric_sums,
 )
 from plankassembly_tpu_torch.models.model import init_params
+from plankassembly_tpu_torch.parallel import multihost
+from plankassembly_tpu_torch.parallel.mesh import (
+    check_tensor_parallel, gather_leaf, gather_params, make_mesh, shard_leaf,
+    shard_params, spec_for_path,
+)
 from plankassembly_tpu_torch.train.state import (
     TrainState, init_state, make_device_train_step, make_optimizer,
     make_train_step, tree_leaves,
 )
 from plankassembly_tpu_torch.utils.profiling import StepTimer
-
-PARALLEL_TODO = ("multi-device training is not ported yet (ROADMAP.md §1, "
-                 "'Parallel')")
 
 
 def beam_width(decode_impl: str) -> int:
@@ -82,14 +99,19 @@ def beam_width(decode_impl: str) -> int:
 
 
 class MetricsLogger:
-    """JSONL + stdout logger (`metrics.jsonl` in the run directory)."""
+    """JSONL + stdout logger (`metrics.jsonl` in the run directory); rank 0
+    only in a process group."""
 
     def __init__(self, log_dir: str):
-        os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, "metrics.jsonl")
-        self._f = open(self.path, "a")
+        self._f = None
+        if multihost.is_main():
+            os.makedirs(log_dir, exist_ok=True)
+            self._f = open(self.path, "a")
 
     def log(self, step: int, payload: dict):
+        if self._f is None:
+            return
         rec = {"step": step, "time": time.time(), **payload}
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
@@ -98,7 +120,8 @@ class MetricsLogger:
         print(f"[step {step}] {pretty}", flush=True)
 
     def close(self):
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 def _to_device(batch: dict, device) -> dict:
@@ -115,7 +138,8 @@ def _to_device(batch: dict, device) -> dict:
 
 
 class Trainer:
-    """Complete-lines modality trainer on one device."""
+    """Complete-lines modality trainer, on one device or one rank of a
+    mesh."""
 
     dataset_cls = LineDataset
     train_augmentation = True
@@ -123,32 +147,47 @@ class Trainer:
     def __init__(self, cfg: Config, log_dir: str | None = None,
                  compute_dtype=torch.bfloat16, device=None):
         tc = cfg.trainer
-        if tc.devices > 1 or tc.strategy == "dp+tp":
-            raise NotImplementedError(
-                f"trainer.devices={tc.devices}, strategy={tc.strategy!r}: "
-                f"{PARALLEL_TODO}")
         self.num_beams = beam_width(tc.decode_impl)
         self.cfg = cfg
         self.dims = ModelDims.from_config(cfg)
+        tp = max(1, tc.tensor_parallel) if tc.strategy == "dp+tp" else 1
+        check_tensor_parallel(self.dims, tp)
+        num_data = max(1, min(tc.devices, multihost.world_size() // tp))
+        self.mesh = make_mesh(num_data, tp)
+        self.global_batch = cfg.BATCH_SIZE * num_data
         self.compute_dtype = compute_dtype
-        self.device = resolve_device(device)
+        self.device = resolve_device(
+            device if device is not None else multihost.default_device())
         self.detect_anomaly = tc.detect_anomaly
-        self.log_dir = log_dir or os.path.join(
-            tc.default_root_dir, f"version_{int(time.time())}")
+        self.log_dir = multihost.broadcast_object(log_dir or os.path.join(
+            tc.default_root_dir, f"version_{int(time.time())}"),
+            self.mesh.host_group)
         os.makedirs(self.log_dir, exist_ok=True)
         self.logger = MetricsLogger(self.log_dir)
-        write_hparams_yaml(cfg, os.path.join(self.log_dir, "hparams.yaml"))
+        if multihost.is_main():
+            write_hparams_yaml(cfg, os.path.join(self.log_dir,
+                                                 "hparams.yaml"))
         self.optimizer = make_optimizer(cfg.LR)
         self.train_step_fn = make_train_step(
             self.dims, compute_dtype=compute_dtype,
-            flash=tc.fused_attention)
+            flash=tc.fused_attention, mesh=self._step_mesh)
         self.device_step_fn = make_device_train_step(
             self.dims, compute_dtype=compute_dtype,
-            flash=tc.fused_attention)
+            flash=tc.fused_attention, mesh=self._step_mesh)
         self._rng = torch.Generator(device=self.device).manual_seed(
             cfg.seed_everything)
         self._aug_rng = np.random.RandomState(cfg.seed_everything)
         self._eval_orders: dict = {}
+
+    @property
+    def _step_mesh(self):
+        """The mesh the model functions take: None in a single process."""
+        return self.mesh if self.mesh.data_group is not None else None
+
+    @property
+    def rows(self) -> tuple[int, int]:
+        """This rank's rows of each global batch."""
+        return multihost.owned_row_range(self.global_batch, self.mesh)
 
     def close(self):
         """Close the metrics log (the trainer stays usable without it for
@@ -169,15 +208,21 @@ class Trainer:
 
     def train_dataloader(self):
         """`DeviceDataLoader` over the cached split with
-        `trainer.device_data`, else `DataLoader`."""
+        `trainer.device_data` in a single process, else `DataLoader` over
+        this rank's rows."""
         ds = self._dataset(self.cfg.DATASETS_TRAIN, self.train_augmentation)
         if self.cfg.trainer.device_data and ds._cache is not None:
-            return DeviceDataLoader(ds, ds._cache, self.cfg.BATCH_SIZE,
-                                    self.device,
-                                    seed=self.cfg.seed_everything)
-        return DataLoader(ds, batch_size=self.cfg.BATCH_SIZE, shuffle=True,
+            if multihost.world_size() == 1:
+                return DeviceDataLoader(ds, ds._cache, self.cfg.BATCH_SIZE,
+                                        self.device,
+                                        seed=self.cfg.seed_everything)
+            if multihost.is_main():
+                print("trainer.device_data applies in a single process; "
+                      f"{multihost.world_size()} processes take the host "
+                      "loader", flush=True)
+        return DataLoader(ds, batch_size=self.global_batch, shuffle=True,
                           drop_last=True, seed=self.cfg.seed_everything,
-                          num_workers=self.cfg.NUM_WORKERS)
+                          num_workers=self.cfg.NUM_WORKERS, rows=self.rows)
 
     def _eval_order(self, dataset):
         """Eval batches sorted by (program length, line count), so rows
@@ -200,9 +245,10 @@ class Trainer:
 
     def _eval_dataloader(self, split_files: str) -> DataLoader:
         ds = self._dataset(split_files, False)
-        return DataLoader(ds, batch_size=self.cfg.BATCH_SIZE,
+        return DataLoader(ds, batch_size=self.global_batch,
                           order=self._eval_order(ds),
-                          num_workers=self.cfg.NUM_WORKERS, pad_to_batch=True)
+                          num_workers=self.cfg.NUM_WORKERS, pad_to_batch=True,
+                          rows=self.rows)
 
     def val_dataloader(self) -> DataLoader:
         return self._eval_dataloader(self.cfg.DATASETS_VALID)
@@ -216,8 +262,31 @@ class Trainer:
     def init_state(self, seed: int | None = None) -> TrainState:
         gen = torch.Generator().manual_seed(
             seed if seed is not None else self.cfg.seed_everything)
-        return init_state(init_params(gen, self.dims), self.optimizer,
-                          device=self.device)
+        return self._state(init_params(gen, self.dims))
+
+    def _state(self, params: dict, opt_state: dict | None = None,
+               step: int = 0) -> TrainState:
+        """A TrainState of this rank's shards of the whole tree `params`
+        (and of the whole Adam state `opt_state`, when given)."""
+        state = init_state(shard_params(params, self.mesh), self.optimizer,
+                           device=self.device)
+        if opt_state is not None:
+            state.optimizer.load_state_dict(self._map_opt_state(
+                opt_state, params, shard_leaf))
+        state.step = step
+        return state
+
+    def _map_opt_state(self, opt_state: dict, params: dict, fn) -> dict:
+        """The Adam state with fn(tensor, split axis, mesh) applied to each
+        parameter's moment tensors (Adam's index i is leaf i of
+        `tree_leaves(params)`)."""
+        tp = self.mesh.tensor_parallel
+        axes = [spec_for_path("/".join(p), tp) for p, _ in tree_leaves(params)]
+        state = {i: {k: (fn(v, axes[int(i)], self.mesh)
+                         if torch.is_tensor(v) and v.dim() else v)
+                     for k, v in s.items()}
+                 for i, s in opt_state["state"].items()}
+        return {**opt_state, "state": state}
 
     def fit(self, state: TrainState | None = None,
             max_epochs: int | None = None) -> TrainState:
@@ -274,11 +343,35 @@ class Trainer:
     # ------------------------------------------------------------------
     # eval
     # ------------------------------------------------------------------
+    def _eval_state(self, state: TrainState) -> TrainState:
+        """`state` with the whole parameter tree, for decoding (gathered
+        from the shards under tensor parallelism: every rank of the model
+        group calls this)."""
+        if not self.mesh.tensor_parallel:
+            return state
+        return dataclasses.replace(
+            state, params=gather_params(state.params, self.mesh))
+
+    def _criterion_total(self, criterion):
+        """The criterion summed over the data group (every data replica's
+        rows once)."""
+        totals = multihost.host_allsum(
+            [criterion.precision, criterion.recall, criterion.fmeasure,
+             criterion.total], self.mesh.host_data_group)
+        criterion.precision, criterion.recall, criterion.fmeasure = (
+            float(totals[0]), float(totals[1]), float(totals[2]))
+        criterion.total = int(totals[3])
+        return criterion.compute()
+
     def _decode_batch(self, state: TrainState, batch: dict):
+        """(the batch's tensors, the decode of its rows) at the global
+        batch's kv bucket (the largest of the data replicas')."""
         arrays = _to_device(batch, self.device)
         inputs = {k: v for k, v in arrays.items() if k.startswith("input")}
         tc = self.cfg.trainer
-        bucket = pick_kv_bucket(batch["input_mask"], quantum=tc.kv_quantum)
+        bucket = multihost.host_allmax(
+            pick_kv_bucket(batch["input_mask"], quantum=tc.kv_quantum),
+            self.mesh.host_data_group)
         if self.num_beams:
             out = beam_decode(state.params, inputs, self.dims,
                               num_beams=self.num_beams,
@@ -295,6 +388,7 @@ class Trainer:
 
     def validate(self, state: TrainState) -> tuple[float, float, float]:
         criterion = build_criterion()
+        state = self._eval_state(state)
         loader = self.val_dataloader()
         try:
             for batch in loader:
@@ -308,15 +402,18 @@ class Trainer:
                                  count=int(float(n)))
         finally:
             loader.close()
-        return criterion.compute()
+        return self._criterion_total(criterion)
 
     def test(self, state: TrainState) -> tuple[float, float, float]:
         """Decode the test split, write one prediction JSON per drawing
-        (`pred_jsons/<name>.json`, the reference's format) and return the
-        macro P/R/F1 of the reference matcher."""
+        (`pred_jsons/<name>.json`, the reference's format; each by model
+        rank 0 of the data replica that decoded it) and return the macro
+        P/R/F1 of the reference matcher over the whole split."""
         pred_dir = os.path.join(self.log_dir, "pred_jsons")
         os.makedirs(pred_dir, exist_ok=True)
+        writes = self.mesh.model_rank == 0
         criterion = build_criterion()
+        state = self._eval_state(state)
         loader = self.test_dataloader()
         try:
             for batch in loader:
@@ -332,21 +429,22 @@ class Trainer:
                     if not batch["_local_valid"][i]:
                         continue
                     scores = self._write_prediction(
-                        pred_dir, name, samples[i], attach[i], gts[i],
-                        in_masks[i])
+                        pred_dir if writes else None, name, samples[i],
+                        attach[i], gts[i], in_masks[i])
                     if scores is not None:
                         criterion.update(*scores)
         finally:
             loader.close()
-        prec, rec, f1 = criterion.compute()
+        prec, rec, f1 = self._criterion_total(criterion)
         self.logger.log(state.step, {"test/precision": prec,
                                      "test/recall": rec,
                                      "test/fmeasure": f1})
         return prec, rec, f1
 
     def _write_prediction(self, pred_dir, name, sample, attach, gt, in_mask):
-        """Write `pred_jsons/<name>.json`; returns (P, R, F1) for the
-        criterion, or None to leave the drawing out of it."""
+        """Write `pred_jsons/<name>.json` (not when `pred_dir` is None);
+        returns (P, R, F1) for the criterion, or None to leave the drawing
+        out of it."""
         valid_pred, gt_parsed = self._parse(sample, gt)
         prec, rec, f1 = hungarian_match_host(
             valid_pred[1:], gt_parsed[1:], self.cfg.THRESHOLD)
@@ -375,20 +473,33 @@ class Trainer:
     # ------------------------------------------------------------------
     def save_checkpoint(self, state: TrainState, tag: str, epoch: int = -1,
                         metrics: dict | None = None) -> str:
+        """Write the whole parameters and Adam state (gathered from every
+        rank's shards: every rank calls this) from rank 0."""
         ckpt_dir = os.path.join(self.log_dir, "checkpoints")
-        os.makedirs(ckpt_dir, exist_ok=True)
         path = os.path.join(ckpt_dir, f"{tag}.pt")
-        params = {"/".join(p): t.detach().cpu()
-                  for p, t in tree_leaves(state.params)}
+        whole = gather_params(state.params, self.mesh)
+        opt_state = self._map_opt_state(
+            state.optimizer.state_dict(), whole,
+            lambda t, axis, mesh: gather_leaf(t, axis, mesh).cpu())
+        if multihost.is_main():
+            self._write_checkpoint(ckpt_dir, tag, whole, opt_state,
+                                   state.step, epoch, metrics)
+        multihost.barrier(self.mesh.host_group)  # on disk for every rank
+        return path
+
+    @staticmethod
+    def _write_checkpoint(ckpt_dir, tag, whole, opt_state, step, epoch,
+                          metrics):
+        path = os.path.join(ckpt_dir, f"{tag}.pt")
+        os.makedirs(ckpt_dir, exist_ok=True)
+        params = {"/".join(p): t.cpu() for p, t in tree_leaves(whole)}
         tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save({"params": params,
-                    "opt_state": state.optimizer.state_dict(),
-                    "step": state.step}, tmp)
+        torch.save({"params": params, "opt_state": opt_state,
+                    "step": step}, tmp)
         os.replace(tmp, path)  # a reader never sees half a file
         with open(os.path.join(ckpt_dir, f"{tag}.meta.json"), "w") as f:
-            json.dump({"epoch": epoch, "step": state.step,
+            json.dump({"epoch": epoch, "step": step,
                        "metrics": metrics or {}}, f)
-        return path
 
     def load_checkpoint(self, path: str) -> TrainState:
         """A training checkpoint of the port (`.pt`, or its path without
@@ -396,14 +507,12 @@ class Trainer:
         (params only: a fresh Adam state at step 0)."""
         from plankassembly_tpu_torch.checkpoint import load_training_params
         params, opt_state, step = load_training_params(path)
-        state = init_state(params, self.optimizer, device=self.device)
-        if opt_state is not None:
-            state.optimizer.load_state_dict(opt_state)
-        state.step = step
-        return state
+        return self._state(params, opt_state, step)
 
 
 def _dump(pred_dir, name, payload):
+    if pred_dir is None:  # another rank of the model group writes it
+        return
     with open(os.path.join(pred_dir, f"{name}.json"), "w") as f:
         json.dump(payload, f, indent=4, separators=(", ", ": "))
 

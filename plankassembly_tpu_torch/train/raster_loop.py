@@ -9,7 +9,9 @@ JAX trainer's flash rule on a TPU; elsewhere the loss takes the plain
 attention. Validation and test decode through `greedy_decode_raster`
 (whose encoder runs `ops/attention.py`'s kernel on a CUDA device), or
 `beam_decode_raster` for `trainer.decode_impl: beam<K>`; with no pad in
-the memory they take no kv bucket.
+the memory they take no kv bucket. Under a mesh the ViT's leaves take the
+line model's path rule (`parallel.mesh.spec_for_path`): the patch
+projection and its position embedding stay replicated.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from plankassembly_tpu_torch.models.vit import (
 )
 from plankassembly_tpu_torch.train.loop import Trainer, _to_device
 from plankassembly_tpu_torch.train.state import (
-    TrainState, init_state, make_device_train_step, make_train_step,
+    TrainState, make_device_train_step, make_train_step,
 )
 
 
@@ -48,15 +50,15 @@ class RasterTrainer(Trainer):
         step_kwargs = dict(
             compute_dtype=compute_dtype,
             flash=cfg.trainer.fused_attention and self.device.type == "cuda",
-            loss_impl=partial(train_step_loss_raster, vit=self.vit))
+            loss_impl=partial(train_step_loss_raster, vit=self.vit),
+            mesh=self._step_mesh)
         self.train_step_fn = make_train_step(self.dims, **step_kwargs)
         self.device_step_fn = make_device_train_step(self.dims, **step_kwargs)
 
     def init_state(self, seed: int | None = None) -> TrainState:
         gen = torch.Generator().manual_seed(
             seed if seed is not None else self.cfg.seed_everything)
-        return init_state(init_vit_params(gen, self.dims, self.vit),
-                          self.optimizer, device=self.device)
+        return self._state(init_vit_params(gen, self.dims, self.vit))
 
     def _decode_batch(self, state: TrainState, batch: dict):
         arrays = _to_device(batch, self.device)

@@ -241,8 +241,8 @@ def test_gqa_self_impl_f32_token_exact_vs_jax(impl, kv_quant, gqa_self_impl):
     jdims = JaxDims.from_config(cfg)
     assert jdims.kv_groups == 2
     from plankassembly_tpu.models.model import init_params
-    params = jax.tree.map(np.asarray, init_params(jax.random.PRNGKey(4),
-                                                  jdims))
+    params = jax.tree.map(np.asarray, init_params(
+        jax.random.key(4, impl="threefry2x32"), jdims))
     batch = {k: v for k, v in random_batch(cfg, batch_size=4, seed=4).items()
              if k.startswith("input")}
     jp, jb = _jax(params, batch)

@@ -204,8 +204,9 @@ def test_unsupported_export_combos_rejected(setup):
     cfg, _, params, _, _ = setup
     with pytest.raises(ValueError, match="must divide"):
         export(params, cfg, batch=3, bucket=BUCKET, data_parallel=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        export(params, cfg, batch=4, bucket=BUCKET, data_parallel=2)
+    # a data-parallel artifact exports; its header carries the split
+    _, meta = export(params, cfg, batch=4, bucket=BUCKET, data_parallel=2)
+    assert meta["data_parallel"] == 2
     with pytest.raises(ValueError, match="trained input width"):
         export(params, cfg, batch=2, bucket=BUCKET + 1)
 

@@ -53,6 +53,9 @@ import plankassembly_tpu_torch.data.raster
 import plankassembly_tpu_torch.models.vit
 import plankassembly_tpu_torch.train.raster_loop
 import plankassembly_tpu_torch.trainer_raster
+import plankassembly_tpu_torch.parallel.multihost
+import plankassembly_tpu_torch.parallel.mesh
+import plankassembly_tpu_torch.cli
 from plankassembly_tpu_torch.config import config_from_hparams_file
 cfg = config_from_hparams_file(sys.argv[1])
 leaked = sorted(m for m in sys.modules if sys.modules[m] is not None and (

@@ -142,8 +142,10 @@ def test_fit_checkpoint_test_and_serve(dataset_dir, tmp_path):
 
 
 def test_fit_from_released_npz_and_guards(dataset_dir, tmp_path):
-    """A released .npz starts a fit with a fresh Adam state; multi-device
-    settings and unknown decode options raise instead of running."""
+    """A released .npz starts a fit with a fresh Adam state; the mesh
+    settings follow JAX's rules (devices clamp to the processes there are,
+    a tensor-parallel group larger than the world raises) and the port's
+    whole-head split; unknown decode options raise instead of running."""
     cfg = make_cfg(dataset_dir, tmp_path / "logs")
     trainer = Trainer(cfg, compute_dtype=torch.float32, device="cpu")
     path = tmp_path / "tiny.npz"
@@ -155,11 +157,25 @@ def test_fit_from_released_npz_and_guards(dataset_dir, tmp_path):
     np.testing.assert_array_equal(
         state.params["heads"]["vocab"]["w"].detach().numpy(),
         flat["heads/vocab/w"])
-    for bad, match in ((dict(devices=2), "Parallel"),
-                       (dict(strategy="dp+tp"), "Parallel")):
-        with pytest.raises(NotImplementedError, match=match):
-            Trainer(make_cfg(dataset_dir, tmp_path / "l2", **bad),
-                    device="cpu")
+    # devices=2 in one process: one data replica of BATCH_SIZE rows
+    clamped = Trainer(make_cfg(dataset_dir, tmp_path / "l2", devices=2),
+                      device="cpu")
+    assert (clamped.mesh.num_data, clamped.mesh.num_model) == (1, 1)
+    assert clamped.global_batch == clamped.cfg.BATCH_SIZE
+    assert clamped.rows == (0, clamped.cfg.BATCH_SIZE)
+    clamped.close()
+    # tp=2 splits both kv heads of an MHA model, but one process is no
+    # group of 2 (JAX's mesh error); tp=2 over the single kv head of the
+    # GQA config is no whole-head split
+    mha = make_cfg(dataset_dir, tmp_path / "l2", strategy="dp+tp",
+                   tensor_parallel=2)
+    mha = dataclasses.replace(mha, MODEL=dataclasses.replace(
+        mha.MODEL, NUM_KV_HEAD=0))
+    with pytest.raises(ValueError, match="mesh needs 2 devices, have 1"):
+        Trainer(mha, device="cpu")
+    with pytest.raises(ValueError, match="does not divide the 1 kv heads"):
+        Trainer(make_cfg(dataset_dir, tmp_path / "l2", strategy="dp+tp",
+                         tensor_parallel=2), device="cpu")
     # every decode_impl of the JAX trainer is taken; an unknown one raises
     for impl, beams in (("auto", 0), ("beam4", 4)):
         tr = Trainer(make_cfg(dataset_dir, tmp_path / "l2",
