@@ -174,6 +174,28 @@ instead of hanging, each printing one line (or a few) when it ends:
    seq shape against their plain versions, timed; export_serving(
    data_parallel=2) refused for want of visible devices. Gloo times on one
    card are no multi-GPU figure.
+18. factory: the offline data factory and the dataset, checkpoint and
+   evaluation tools, each through `python -m plankassembly_tpu_torch.
+   tools.<name>` (the sweep through its `main`, so that its launches are
+   counted): the serving fixture's seeds regenerated (complete, visible,
+   noise_05, noise_10; every drawing in the test split) and the training
+   fixture's, every row field for field against serve64.json.gz and
+   train64.json.gz and every file at the digest the JAX tools wrote
+   (fixtures/factory_jax_golden.json); the host ms per drawing of
+   generate, render (native library and numpy path) and prepare, and
+   node_classify / dedupe_covers against the numpy path when the library
+   loads; the robustness sweep of ep221 over complete, noise_05 and
+   noise_10 through `Trainer.test` with the persistent decode and int8
+   cross K/V, bf16 and f32, each F1 against the JAX golden's
+   (SWEEP_F1_TOL), ms a step, launches of kernels 1 and 2, and the clean
+   set again through the config's `auto` decode; evaluate,
+   build_pred_mesh, build_gt_mesh and build_html on the clean run; ep59
+   written in the reference's Lightning layout, converted back by
+   convert_reference_checkpoint and served through `kernel` against ep59
+   (every program identical); ep221 as a training checkpoint of the port
+   exported to npz (bit-equal to the release) and imported back (every
+   program identical); and a short fit on the regenerated training set
+   whose tfevents scalars must equal its metrics.jsonl.
 
 The flash phase also holds flash_attention at the raster encoder's shape
 (B=32, 8 heads over 8 kv heads, 192 keys, every one real), and the
@@ -221,7 +243,8 @@ BUDGET = {"device": 240, "flash": 180, "decode": 240, "serve": 300,
           "decode_options": 300, "beam": 300, "http": 300,
           "train_kernel": 300, "train_step": 240, "fit": 420,
           "mha_kernels": 240, "mha_serve": 420, "sideface_serve": 300,
-          "data_fit": 420, "export": 300, "raster": 300, "parallel": 420}
+          "data_fit": 420, "export": 300, "raster": 300, "parallel": 420,
+          "factory": 300}
 PHASES = tuple(BUDGET)
 
 # tolerances (the plain versions accumulate in f32 like the kernels; the
@@ -4065,6 +4088,472 @@ def phase_parallel(params, cfg, train_infos, serve_infos, tmp):
     return res
 
 
+# ---------------------------------------------------------------- phase 18
+# the offline data factory: the serving fixture's seeds (all in the test
+# split, the robustness sweep's) and the training fixture's seeds, the
+# process fan-out of the render and prepare tools, the sweep's variants
+FACTORY_SERVE_SEED, FACTORY_TRAIN_SEED, FACTORY_COUNT = 900000, 910000, 64
+FACTORY_WORKERS = 4
+FACTORY_VARIANTS = ("complete", "visible", "noise_05", "noise_10")
+SWEEP_VARIANTS = ("complete", "noise_05", "noise_10")
+SWEEP_F1_TOL = SERVE_F1_TOL    # the serving bars against the JAX golden
+TB_FIT_BATCH = 16              # the short fit whose TensorBoard stream is read
+
+
+def _tool(name, *args, module="plankassembly_tpu_torch.tools"):
+    """`python -m <module>.<name> args` from the checkout, as a user runs
+    it; host seconds. A tool that exits non-zero, or a render that reports
+    a failed sample, fails the phase."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", f"{module}.{name}", *args],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    check(out.returncode == 0 and "failed, due to" not in out.stdout,
+          f"{name} {' '.join(args)}: rc {out.returncode}\n"
+          f"{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def _dataset(root, seed, variants, split_flags):
+    """The dataset of FACTORY_COUNT seeds from `seed` through the port's
+    three tools; {tool: host seconds}."""
+    secs = {"generate_models": _tool(
+        "generate_models", "--root", root, "--count", str(FACTORY_COUNT),
+        "--seed", str(seed), *split_flags)}
+    for variant in variants:
+        for name, flag in (("render_svgs", "--root"),
+                           ("prepare_info", "--data_path")):
+            secs[f"{name}:{variant}"] = _tool(
+                name, flag, root, "--data_type", variant, "--max_workers",
+                str(FACTORY_WORKERS))
+    return secs
+
+
+def _digests(root):
+    import hashlib
+    out = {}
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, root)] = \
+                    hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def _fixture_rows(root, rows):
+    """The rows of a fixture whose info JSON under `root` differs from
+    them in any of the fixture's fields."""
+    bad = []
+    for row in rows:
+        with open(os.path.join(root, "data", "complete", "infos",
+                               f"{row['name']}.json")) as f:
+            info = json.load(f)
+        if {k: info.get(k) for k in row} != row:
+            bad.append(row["name"])
+    return bad
+
+
+def factory_host_ms(root, scratch):
+    """Host ms per drawing of each step of the factory, in this process on
+    the serving dataset's drawings, one at a time: generate (the program,
+    its check, its JSON), render (the three views of the complete variant)
+    with the native library and with the numpy path, prepare (the info
+    JSON). The two paths' SVGs must be the same bytes."""
+    import argparse
+    from plankassembly_tpu_torch.factory import native
+    from plankassembly_tpu_torch.factory.synthetic import (
+        generate_cabinet, validate_program,
+    )
+    from plankassembly_tpu_torch.tools import prepare_info, render_svgs
+
+    seeds = range(FACTORY_SERVE_SEED, FACTORY_SERVE_SEED + FACTORY_COUNT)
+    t0 = time.perf_counter()
+    for seed in seeds:
+        planks, attach = generate_cabinet(seed)
+        validate_program(planks, attach)
+        json.dumps({"planks": planks.tolist(), "attach": attach.tolist()})
+    ms = {"generate": (time.perf_counter() - t0) * 1e3 / len(seeds)}
+    names = [f"syn{s:06d}" for s in seeds]
+    svgs = {}
+    for path in (("native", "numpy") if native.available() else ("numpy",)):
+        out = os.path.join(scratch, path)
+        os.makedirs(os.path.join(out, "data", "complete", "svgs"))
+        os.symlink(os.path.join(root, "model"), os.path.join(out, "model"))
+        args = argparse.Namespace(root=out, data_type="complete",
+                                  noise_ratio=None, noise_length=0.02,
+                                  line_width=0.5, decimals=3)
+        absent = {"_LIB": None, "_TRIED": True} if path == "numpy" else {}
+        with _patched(native, **absent):
+            t0 = time.perf_counter()
+            for i, name in enumerate(names):
+                render_svgs.render_three_views((i, name, args))
+            ms[f"render_{path}"] = \
+                (time.perf_counter() - t0) * 1e3 / len(names)
+        svgs[path] = {k: v for k, v in _digests(out).items()
+                      if k.endswith(".svg")}
+        check(len(svgs[path]) == 3 * len(names),
+              f"factory: the {path} render wrote {len(svgs[path])} SVGs")
+    if "native" in svgs:
+        check(svgs["native"] == svgs["numpy"],
+              "factory: the native library's SVGs differ from the numpy "
+              "path's")
+    args = argparse.Namespace(data_path=os.path.join(scratch, "numpy"),
+                              data_type="complete", scale=1280.0, decimals=3)
+    os.makedirs(os.path.join(args.data_path, "data", "complete", "infos"))
+    t0 = time.perf_counter()
+    for name in names:
+        prepare_info.prepare_annotation(name, args)
+    ms["prepare"] = (time.perf_counter() - t0) * 1e3 / len(names)
+    return ms
+
+
+def native_against_numpy(root):
+    """node_classify and dedupe_covers of the native library against the
+    numpy path on the serving dataset's drawings, every view: (views
+    compared, views that differ)."""
+    from plankassembly_tpu_torch.factory import projection as proj
+    from plankassembly_tpu_torch.factory import native
+
+    n = bad = 0
+    for name in sorted(os.listdir(os.path.join(root, "model"))):
+        with open(os.path.join(root, "model", name)) as f:
+            boxes = np.array(json.load(f)["planks"])[1:] / 1280.0
+        for view in proj.VIEWS:
+            segs, depths, _ = proj.box_view_segments(boxes, view)
+            rects, near = proj._silhouettes(boxes, view)
+            atomic, hidden = native.node_classify(segs, depths, rects, near)
+            lines, types = proj.project_boxes(boxes, view, use_native=False)
+            flat = np.stack([np.asarray(l).reshape(4) for l in lines])
+            keep = native.dedupe_covers(flat, np.asarray(types))
+            kept = proj.remove_overlapping_lines(lines, types,
+                                                 use_native=False)
+            order = np.lexsort((-np.linalg.norm(flat[:, 2:] - flat[:, :2],
+                                                axis=1), np.asarray(types)))
+            want = [i for i in order if keep[i]]
+            same = (np.array_equal(atomic, flat)
+                    and np.array_equal(hidden.astype(int), types)
+                    and len(want) == len(kept[0])
+                    and all(np.array_equal(flat[i], np.asarray(l).reshape(4))
+                            for i, l in zip(want, kept[0])))
+            n += 1
+            bad += not same
+    return n, bad
+
+
+def phase_factory(serve_infos, train_infos, tmp):
+    from plankassembly_tpu_torch import cli
+    from plankassembly_tpu_torch.checkpoint import load_checkpoint, tree_map
+    from plankassembly_tpu_torch.config import load_config
+    from plankassembly_tpu_torch.factory import native
+    from plankassembly_tpu_torch.serving import pack_info_dict
+    from plankassembly_tpu_torch.tools import (
+        convert_reference_checkpoint, robustness_sweep,
+    )
+    from plankassembly_tpu_torch.train import loop
+    from plankassembly_tpu_torch.train.state import tree_leaves
+    from plankassembly_tpu_torch.utils.tb_writer import read_tfevents
+
+    with open(os.path.join(FIXTURES, "factory_jax_golden.json")) as f:
+        golden = json.load(f)
+    base = os.path.join(tmp, "factory")
+    serve_root = os.path.join(base, "serve")
+    train_root = os.path.join(base, "train")
+    res = {"native": native.available()}
+
+    # the datasets through the tools, against the fixtures and the golden
+    secs = _dataset(serve_root, FACTORY_SERVE_SEED, FACTORY_VARIANTS,
+                    golden["generate_flags"][4:])
+    secs.update({f"train {k}": v for k, v in _dataset(
+        train_root, FACTORY_TRAIN_SEED, ("complete",), []).items()})
+    res["tool_seconds"] = secs
+    check(golden["generate_flags"][:4] == [
+        "--seed", str(FACTORY_SERVE_SEED), "--count", str(FACTORY_COUNT)],
+        "factory: the golden's seeds are not the serving fixture's")
+    serve_bad = _fixture_rows(serve_root, serve_infos)
+    train_bad = _fixture_rows(train_root, train_infos)
+    digests = _digests(serve_root)
+    splits = {os.path.basename(k): k for k in digests if k.startswith(
+        "splits")}
+    split_bad = [name for name, text in golden["splits"].items()
+                 if open(os.path.join(serve_root, "splits", name)).read()
+                 != text]
+    files = {k: v for k, v in digests.items() if not k.startswith("splits")}
+    digest_bad = sorted(k for k in set(files) | set(golden["sha256"])
+                        if files.get(k) != golden["sha256"].get(k))
+    per_variant = {v: sum(k.startswith(f"data/{v}/") for k in digest_bad)
+                   for v in FACTORY_VARIANTS}
+    log(f"factory datasets: native library "
+        f"{'loaded' if res['native'] else 'absent (numpy path)'}; serve64 "
+        f"{len(serve_infos) - len(serve_bad)}/{len(serve_infos)} rows equal, "
+        f"train64 {len(train_infos) - len(train_bad)}/{len(train_infos)} "
+        f"(svgs too); {len(files) - len(digest_bad)}/{len(golden['sha256'])} "
+        f"files at the JAX golden's digest (differing by variant "
+        f"{per_variant}), splits {sorted(splits)} equal "
+        f"{not split_bad}; tool seconds "
+        + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+    check(not serve_bad, f"factory: serve64 rows differ: {serve_bad[:5]}")
+    check(not train_bad, f"factory: train64 rows differ: {train_bad[:5]}")
+    check(not split_bad, f"factory: split files differ: {split_bad}")
+    check(not digest_bad and len(files) == len(golden["sha256"]),
+          f"factory: {len(digest_bad)} files differ from the JAX golden: "
+          f"{digest_bad[:5]}")
+
+    # host ms per drawing, and the native library against the numpy path
+    ms = res["host_ms"] = factory_host_ms(serve_root,
+                                          os.path.join(base, "timing"))
+    if res["native"]:
+        n, bad = native_against_numpy(serve_root)
+        res["native_views"] = n
+        check(bad == 0, f"factory: node_classify/dedupe_covers differ from "
+              f"the numpy path on {bad}/{n} views")
+    log(f"factory host ms per drawing ({card_line()}; one host thread): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + (f"; node_classify and dedupe_covers equal to the numpy path on "
+           f"{res['native_views']} views" if res["native"] else
+           "; native library absent, numpy path only"))
+
+    # the robustness sweep of ep221, persistent decode, int8 cross K/V
+    steps = []
+    real_decode = loop.greedy_decode
+
+    def timed_decode(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_decode(*a, **k)
+        torch.cuda.synchronize()
+        steps.append((int(out["num_steps"]), time.perf_counter() - t0))
+        return out
+
+    split = os.path.join(serve_root, "splits", "test.txt")
+    sweeps = {}
+    for precision, decode_impl, kv_quant in (("bf16", "persistent", "true"),
+                                             ("f32", "persistent", "true"),
+                                             ("bf16", "auto", "false")):
+        tag = f"{precision} {decode_impl}"
+        out_dir = os.path.join(base, f"sweep_{precision}_{decode_impl}")
+        variants = SWEEP_VARIANTS if decode_impl == "persistent" else \
+            ("complete",)
+        argv = ["--config", os.path.join(ROOT, "configs",
+                                         "train_synthetic_gqa.yaml"),
+                "--ckpt_path", CKPT, "--data_root", serve_root,
+                "--variants", *variants, "--precision", precision,
+                "--device", DEVICE, "--out_dir", out_dir,
+                "--model.hparams.DATASETS_TEST", split,
+                "--trainer.decode_impl", decode_impl,
+                "--trainer.kv_quant", kv_quant]
+        steps.clear()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with _patched(loop, greedy_decode=timed_decode):
+            scores = robustness_sweep.main(argv)
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in _launch_counts().items() if v}
+        n_steps = sum(n for n, _ in steps)
+        run = {"scores": scores, "launches": launches, "wall_s": wall,
+               "steps": n_steps, "calls": len(steps),
+               "ms_per_step": sum(t for _, t in steps) * 1e3 / n_steps}
+        sweeps[tag] = run
+        for variant in variants:
+            pred = os.path.join(out_dir, f"sweep_{variant}", "pred_jsons")
+            check(len(os.listdir(pred)) == FACTORY_COUNT,
+                  f"factory: sweep {tag} {variant}: "
+                  f"{len(os.listdir(pred))} prediction JSONs")
+        gold = golden["sweep"]["scores"]
+        log(f"factory sweep {tag} (ep221, kv_quant {kv_quant}): "
+            + "; ".join(
+                f"{v} P {scores[v]['precision']:.6f} R "
+                f"{scores[v]['recall']:.6f} F1 {scores[v]['fmeasure']:.6f} "
+                f"(JAX golden {gold[v][precision]['fmeasure']:.6f}, dF1 "
+                f"{scores[v]['fmeasure'] - gold[v][precision]['fmeasure']:+.6f})"
+                for v in variants)
+            + f"; {run['calls']} decode calls (ms, steps: "
+            + ", ".join(f"{t * 1e3:.1f}/{n}" for n, t in steps)
+            + f"), {run['ms_per_step']:.3f} ms a step (a call's wall, the "
+            f"encoder included, over its steps); wall {wall:.1f} s; "
+            f"launches {launches}")
+        check(launches.get("flash_attention", 0) > 0,
+              f"factory: sweep {tag} did not launch flash_attention")
+        if decode_impl == "persistent":
+            check(launches.get("persistent_greedy_decode", 0) > 0,
+                  f"factory: sweep {tag} did not launch the persistent "
+                  f"decode")
+            for v in variants:
+                d = abs(scores[v]["fmeasure"] - gold[v][precision]["fmeasure"])
+                check(d <= SWEEP_F1_TOL[precision],
+                      f"factory: sweep {tag} {v} F1 {scores[v]['fmeasure']} "
+                      f"against the JAX golden's "
+                      f"{gold[v][precision]['fmeasure']}")
+        else:
+            check(0.0 < scores["complete"]["fmeasure"] <= 1.0,
+                  f"factory: sweep {tag} F1")
+    res["sweep"] = sweeps
+
+    # meshes and the gallery of the bf16 sweep's clean test run
+    run_dir = os.path.join(base, "sweep_bf16_persistent", "sweep_complete")
+    _tool("evaluate", "--data_path", os.path.join(serve_root, "data",
+                                                  "complete"),
+          "--exp_path", run_dir, module="plankassembly_tpu_torch")
+    _tool("build_pred_mesh", "--exp_path", run_dir)
+    _tool("build_gt_mesh", "--data_path", serve_root)
+    _tool("build_html", "--data_path", serve_root, "--exp_path", run_dir)
+    pred_meshes = len([n for n in os.listdir(os.path.join(
+        run_dir, "pred_meshes")) if n.endswith(".stl")])
+    gt_meshes = len([n for n in os.listdir(os.path.join(serve_root, "mesh"))
+                     if n.endswith(".stl")])
+    with open(os.path.join(run_dir, "index.html")) as f:
+        page = f.read()
+    named = sum(f"<td>{r['name']}</td>" in page for r in serve_infos)
+    glbs = {d: len(os.listdir(os.path.join(run_dir, d)))
+            for d in ("pred_mesh", "gt_mesh")}
+    log(f"factory meshes: {pred_meshes} predicted STL, {gt_meshes} "
+        f"ground-truth STL, GLB {glbs}; gallery names {named}/"
+        f"{len(serve_infos)} drawings")
+    check(pred_meshes == gt_meshes == FACTORY_COUNT,
+          f"factory: {pred_meshes} / {gt_meshes} meshes")
+    check(named == len(serve_infos) and all(
+        n == FACTORY_COUNT for n in glbs.values()),
+        f"factory: the gallery names {named} drawings, GLB {glbs}")
+
+    # the reference's Lightning layout: ep59 written out and converted back
+    mha_params, mha_cfg = load_checkpoint(MHA_CKPT, device="cpu")
+    ref_ckpt = os.path.join(base, "reference", "ep59.ckpt")
+    os.makedirs(os.path.dirname(ref_ckpt))
+    torch.save({"epoch": 59, "state_dict":
+                convert_reference_checkpoint.reference_state_dict(
+                    mha_params)}, ref_ckpt)
+    converted = os.path.join(base, "reference", "run", "checkpoints",
+                             "ep59.pt")
+    _tool("convert_reference_checkpoint", "--ckpt", ref_ckpt, "--out",
+          converted, "--hparams", os.path.splitext(MHA_CKPT)[0]
+          + ".hparams.yaml", "--encoder_layers",
+          str(mha_cfg.MODEL.NUM_ENCODER_LAYERS), "--decoder_layers",
+          str(mha_cfg.MODEL.NUM_DECODER_LAYERS))
+    conv_params, conv_cfg = load_checkpoint(converted, device=DEVICE)
+    check(conv_cfg == mha_cfg, "factory: the converted config differs")
+    exact = all(torch.equal(a.cpu(), b) for (_, a), (_, b) in zip(
+        tree_leaves(conv_params), tree_leaves(mha_params)))
+    mha_packed = [pack_info_dict(info, mha_cfg) for info in serve_infos]
+    mha_bucket = int(np.load(os.path.join(
+        FIXTURES, "serve64_mha_jax_golden.npz"))["bucket"])
+    _reset_counts()
+    got, got_att, _, _ = serve(conv_params, conv_cfg, mha_packed, mha_bucket,
+                               torch.bfloat16, cross_impl="kernel")
+    conv_launches = {k: v for k, v in _launch_counts().items() if v}
+    want, want_att, _, _ = serve(
+        tree_map(lambda t: t.to(DEVICE), mha_params), mha_cfg, mha_packed,
+        mha_bucket, torch.bfloat16, cross_impl="kernel")
+    same = int(sum(np.array_equal(a, b) and np.array_equal(c, d)
+                   for a, b, c, d in zip(got, want, got_att, want_att)))
+    res["converted"] = {"identical": same, "launches": conv_launches}
+    log(f"factory converter: ep59 in the reference's Lightning layout "
+        f"({len(convert_reference_checkpoint.reference_state_dict(mha_params))}"
+        f" tensors) converted back, parameters bit-equal {exact}; served "
+        f"through cross_impl kernel bf16: {same}/{len(got)} programs and "
+        f"attach identical to ep59 loaded directly; launches "
+        f"{conv_launches}")
+    check(exact, "factory: the converted parameters differ from ep59's")
+    check(same == len(serve_infos),
+          f"factory: {len(serve_infos) - same} converted programs differ")
+    check(conv_launches.get("cross_attn_decode", 0) > 0 and
+          conv_launches.get("flash_attention", 0) > 0,
+          f"factory: the converted checkpoint's serve skipped a kernel: "
+          f"{conv_launches}")
+    del mha_params, conv_params
+
+    # export_checkpoint: a training checkpoint of ep221 -> npz -> back
+    cfg = load_config(os.path.join(ROOT, "configs",
+                                   "train_synthetic_gqa.yaml"))
+    trainer = loop.Trainer(cfg, log_dir=os.path.join(base, "ckpt_run"),
+                           device=DEVICE)
+    state = trainer.load_checkpoint(CKPT)
+    pt = trainer.save_checkpoint(state, "ep221")
+    trainer.close()
+    del state
+    npz = os.path.join(base, "release", "ep221.npz")
+    _tool("export_checkpoint", "export", "--ckpt", pt, "--out", npz)
+    back = os.path.join(base, "reimport", "checkpoints", "ep221.pt")
+    _tool("export_checkpoint", "import", "--npz", npz, "--out", back)
+    with np.load(npz) as a, np.load(CKPT) as b:
+        npz_equal = sorted(a.files) == sorted(b.files) and all(
+            a[k].tobytes() == b[k].tobytes() and a[k].dtype == b[k].dtype
+            for k in b.files if k != "__step__")
+    rt_params, rt_cfg = load_checkpoint(back, device=DEVICE)
+    params, _ = load_checkpoint(CKPT, device=DEVICE)
+    packed = [pack_info_dict(info, rt_cfg) for info in serve_infos]
+    bucket = int(np.load(os.path.join(FIXTURES, "serve64_jax_golden.npz"))
+                 ["bucket"])
+    got, got_att, _, _ = serve(rt_params, rt_cfg, packed, bucket,
+                               torch.bfloat16)
+    want, want_att, _, _ = serve(params, rt_cfg, packed, bucket,
+                                 torch.bfloat16)
+    rt_same = int(sum(np.array_equal(a, b) and np.array_equal(c, d)
+                      for a, b, c, d in zip(got, want, got_att, want_att)))
+    res["round_trip"] = {"npz_equal": npz_equal, "identical": rt_same}
+    log(f"factory export_checkpoint: ep221 as a training checkpoint -> npz "
+        f"(arrays bit-equal to the release {npz_equal}) -> training "
+        f"checkpoint: {rt_same}/{len(got)} programs and attach identical "
+        f"(persistent, bf16)")
+    check(npz_equal, "factory: the exported npz differs from the release")
+    check(rt_same == len(serve_infos),
+          f"factory: {len(serve_infos) - rt_same} round-trip programs differ")
+    del rt_params, params
+
+    # the TensorBoard stream of a short fit on the regenerated training set
+    split_all = os.path.join(base, "train_all.txt")
+    with open(split_all, "w") as f:
+        f.write("".join(f"{r['name']}.json\n" for r in train_infos))
+    trainer, state = cli.main([
+        "fit", "--config", os.path.join(ROOT, "configs",
+                                        "train_synthetic_gqa.yaml"),
+        "--device", DEVICE,
+        "--model.hparams.ROOT", os.path.join(train_root, "data", "complete",
+                                             "infos"),
+        "--model.hparams.DATASETS_TRAIN", split_all,
+        "--model.hparams.BATCH_SIZE", str(TB_FIT_BATCH),
+        "--trainer.max_epochs", "1", "--trainer.check_val_every_n_epoch",
+        "100", "--trainer.log_every_n_steps", "1",
+        "--trainer.default_root_dir", os.path.join(base, "runs")])
+    trainer.close()
+    with open(os.path.join(trainer.log_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    jsonl = {(r["step"], k): v for r in recs for k, v in r.items()
+             if k not in ("step", "time", "epoch")}
+    events = [e for p in sorted(os.listdir(trainer.log_dir))
+              if p.startswith("events.out.tfevents.")
+              for e in read_tfevents(os.path.join(trainer.log_dir, p))]
+    tb = {(e["step"], k): v for e in events
+          for k, v in e.get("scalars", {}).items()}
+    tb_same = sorted(tb) == sorted(jsonl) and all(
+        tb[k] == float(np.float32(v)) for k, v in jsonl.items())
+    res["tensorboard"] = {"scalars": len(tb), "equal": tb_same,
+                          "steps": state.step}
+    log(f"factory TensorBoard: a {state.step}-step fit (B={TB_FIT_BATCH}) on "
+        f"the regenerated training set; {len(tb)} tfevents scalars against "
+        f"{len(jsonl)} metrics.jsonl values, equal {tb_same}")
+    check(state.step == FACTORY_COUNT // TB_FIT_BATCH and len(tb) > 0,
+          f"factory: the fit took {state.step} steps, {len(tb)} scalars")
+    check(tb_same, "factory: the tfevents scalars differ from metrics.jsonl")
+
+    sw = sweeps["bf16 persistent"]
+    res["launches"] = {k: sum(r["launches"].get(k, 0) for r in sweeps.values())
+                       for k in ("flash_attention",
+                                 "persistent_greedy_decode")}
+    res["launches"]["cross_attn_decode"] = conv_launches.get(
+        "cross_attn_decode", 0)
+    note("factory", f"fixtures regenerated, {len(files)} files at the JAX "
+         f"digests; native {res['native']}; host ms/drawing "
+         + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+         + "; sweep bf16 F1 " + " ".join(
+             f"{v} {sw['scores'][v]['fmeasure']:.6f}" for v in SWEEP_VARIANTS)
+         + f", f32 " + " ".join(
+             f"{v} {sweeps['f32 persistent']['scores'][v]['fmeasure']:.6f}"
+             for v in SWEEP_VARIANTS)
+         + f", {sw['ms_per_step']:.3f} ms/step; converter {same}/64, "
+         f"round trip {rt_same}/64, tfevents {tb_same}")
+    return res
+
+
 def summarize(res):
     """One line per phase that ran with its headline numbers, kept short:
     they stand in the last lines of the output."""
@@ -4299,6 +4788,9 @@ def main() -> int:
             with Phase("parallel"):
                 res["parallel"] = phase_parallel(params, cfg, train_infos,
                                                  infos, tmp)
+        if "factory" in phases:
+            with Phase("factory"):
+                res["factory"] = phase_factory(infos, train_infos, tmp)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     summarize(res)
     if set(phases) != set(PHASES):
@@ -4413,6 +4905,12 @@ def main() -> int:
                  f"Lk={SEQ_LEN} bf16",
         **{k: sk[k] for k in ("err", "ms", "plain_ms", "library_ms",
                               "bound_ms", "bound_by")}}
+    # launches on the factory phase's paths: kernels 1 and 2 in its three
+    # robustness sweeps, kernel 4 in the converted reference checkpoint's
+    # serve
+    fa = res["factory"]["launches"]
+    flash_entry["launches_factory"] = fa["flash_attention"]
+    decode_entry["launches_factory"] = fa["persistent_greedy_decode"]
     kernels = [
         flash_entry,
         decode_entry,
@@ -4441,6 +4939,7 @@ def main() -> int:
         "bound_by") + device_keys + ("library_device_ms",) + skip_keys}
     entry["async_copies"] = {k: res["async_copies"][k]
                              for k in ASYNC_KERNELS["cross_attn_decode"]}
+    entry["launches_factory"] = fa["cross_attn_decode"]
     kernels.append(entry)
     src = "plankassembly_tpu_torch/csrc/fused_decode.cu"
     layer = _entry("fused_decoder_layer", src,

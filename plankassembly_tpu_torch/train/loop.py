@@ -45,8 +45,7 @@ Differences from the JAX trainer:
 - checkpoints are `torch.save` files (params, Adam state, step) beside the
   same `.meta.json`, not orbax directories;
 - the augmentation RNG is a `np.random.RandomState(seed_everything)`, not
-  numpy's unseeded global one; the metrics go to JSONL and stdout, not to
-  TensorBoard too;
+  numpy's unseeded global one;
 - `device_data` with the sideface modality trains: the JAX device loader
   calls the sideface dataset's `_pack` with a signature that dataset does
   not have, so an augmented row raises there.
@@ -85,6 +84,7 @@ from plankassembly_tpu_torch.train.state import (
     make_train_step, tree_leaves,
 )
 from plankassembly_tpu_torch.utils.profiling import StepTimer
+from plankassembly_tpu_torch.utils.tb_writer import TensorBoardWriter
 
 
 def beam_width(decode_impl: str) -> int:
@@ -99,15 +99,19 @@ def beam_width(decode_impl: str) -> int:
 
 
 class MetricsLogger:
-    """JSONL + stdout logger (`metrics.jsonl` in the run directory); rank 0
-    only in a process group."""
+    """JSONL + stdout + TensorBoard logger, as JAX's: `metrics.jsonl` and an
+    `events.out.tfevents.*` stream (`utils/tb_writer.py`; every numeric
+    value but the epoch, the reference's Lightning TensorBoard surface,
+    `trainer_complete.py:69-70,87-89`) in the run directory; rank 0 only
+    in a process group."""
 
     def __init__(self, log_dir: str):
         self.path = os.path.join(log_dir, "metrics.jsonl")
-        self._f = None
+        self._f = self._tb = None
         if multihost.is_main():
             os.makedirs(log_dir, exist_ok=True)
             self._f = open(self.path, "a")
+            self._tb = TensorBoardWriter(log_dir)
 
     def log(self, step: int, payload: dict):
         if self._f is None:
@@ -115,6 +119,11 @@ class MetricsLogger:
         rec = {"step": step, "time": time.time(), **payload}
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
+        for key, value in payload.items():
+            if isinstance(value, (int, float)) and key != "epoch":
+                self._tb.add_scalar(key, float(value), step,
+                                    wall_time=rec["time"])
+        self._tb.flush()
         pretty = " ".join(f"{k}={v:.4f}" if isinstance(v, float) else
                           f"{k}={v}" for k, v in payload.items())
         print(f"[step {step}] {pretty}", flush=True)
@@ -122,6 +131,8 @@ class MetricsLogger:
     def close(self):
         if self._f is not None:
             self._f.close()
+            self._tb.close()
+            self._f = self._tb = None
 
 
 def _to_device(batch: dict, device) -> dict:

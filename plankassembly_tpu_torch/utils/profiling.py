@@ -1,9 +1,42 @@
-"""Step timing (`plankassembly_tpu/utils/profiling.py::StepTimer`)."""
+"""Tracing and step timing (`plankassembly_tpu/utils/profiling.py`):
+
+- `trace_context(log_dir)`: a `torch.profiler` trace of the enclosed
+  region (host and, on a GPU, device activity), written under `log_dir`
+  as a Chrome trace (open it in Perfetto or chrome://tracing);
+- `annotate(name)`: a named region on that timeline
+  (`torch.profiler.record_function`);
+- `StepTimer`: wall-clock step timing with an EMA.
+"""
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 
 import torch
+
+
+@contextlib.contextmanager
+def trace_context(log_dir: str, enabled: bool = True):
+    """Capture a `torch.profiler` trace of the enclosed region into
+    `<log_dir>/trace_<pid>_<time>.json` (the CUDA activity too when CUDA
+    is available); yields the profiler, or None when not enabled."""
+    if not enabled:
+        yield None
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace_{os.getpid()}_{int(time.time() * 1000)}.json"))
+
+
+def annotate(name: str):
+    """Named sub-region for the profiler timeline."""
+    return torch.profiler.record_function(name)
 
 
 class StepTimer:

@@ -135,15 +135,19 @@ def test_two_process_fit_equals_one_process(runs):
 
 def test_rank_zero_writes_the_logs(runs):
     """metrics.jsonl holds each step once and the validation once (rank 1
-    opened no log); hparams.yaml and the checkpoint are rank 0's."""
+    opened no log); hparams.yaml, the checkpoint and the one TensorBoard
+    stream are rank 0's."""
     dp = runs["load"]("dp2.r0")
     steps, recs = _losses(dp["log_dir"])
     assert len(steps) == STEPS
     assert sum("val/fmeasure" in r for r in recs) == 1
     assert sum("test/fmeasure" in r for r in recs) == 1
     log_dir = str(dp["log_dir"])
-    assert sorted(os.listdir(log_dir)) == ["checkpoints", "hparams.yaml",
-                                           "metrics.jsonl", "pred_jsons"]
+    names = sorted(os.listdir(log_dir))
+    events = [n for n in names if n.startswith("events.out.tfevents.")]
+    assert len(events) == 1
+    assert [n for n in names if n not in events] == [
+        "checkpoints", "hparams.yaml", "metrics.jsonl", "pred_jsons"]
 
 
 def test_validation_and_test_reduce_globally(runs):

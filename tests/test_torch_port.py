@@ -56,6 +56,21 @@ import plankassembly_tpu_torch.trainer_raster
 import plankassembly_tpu_torch.parallel.multihost
 import plankassembly_tpu_torch.parallel.mesh
 import plankassembly_tpu_torch.cli
+import plankassembly_tpu_torch.factory
+import plankassembly_tpu_torch.factory.projection
+import plankassembly_tpu_torch.factory.synthetic
+import plankassembly_tpu_torch.ops.boxes
+import plankassembly_tpu_torch.utils.tb_writer
+import plankassembly_tpu_torch.utils.profiling
+import plankassembly_tpu_torch.tools.generate_models
+import plankassembly_tpu_torch.tools.render_svgs
+import plankassembly_tpu_torch.tools.prepare_info
+import plankassembly_tpu_torch.tools.robustness_sweep
+import plankassembly_tpu_torch.tools.export_checkpoint
+import plankassembly_tpu_torch.tools.convert_reference_checkpoint
+import plankassembly_tpu_torch.tools.build_gt_mesh
+import plankassembly_tpu_torch.tools.build_pred_mesh
+import plankassembly_tpu_torch.tools.build_html
 from plankassembly_tpu_torch.config import config_from_hparams_file
 cfg = config_from_hparams_file(sys.argv[1])
 leaked = sorted(m for m in sys.modules if sys.modules[m] is not None and (
