@@ -196,6 +196,35 @@ instead of hanging, each printing one line (or a few) when it ends:
    exported to npz (bit-equal to the release) and imported back (every
    program identical); and a short fit on the regenerated training set
    whose tfevents scalars must equal its metrics.jsonl.
+19. finetune: ep221 fine-tuned through `python -m plankassembly_tpu_torch.
+   cli fit --ckpt_path checkpoints/gqa_complete_ep221.npz` with the
+   protocol of fixtures/finetune_jax_golden.npz (B=8, dropout 0, LR 1e-4,
+   3 epochs of the 64 training drawings with AUG_RATIO 0.1, validation on
+   the 64 serving drawings after each epoch through the persistent decode
+   with int8 cross K/V), in f32 and in bf16, against JAX's fit on the CPU
+   (FT_TOL): every step's loss, every validation's F1, the best and last
+   checkpoints' meta, the f32 run's last-validation programs and final
+   parameters' norms and probes, and 'last' reloaded bit for bit; the
+   launches of kernels 1, 2 and 3 against their counts; one bf16 step
+   traced (`trace_context`) and read by `tools.trace_summary`, the
+   training attention among its top kernels; then the same protocol in
+   f32 through `python -m plankassembly_tpu_torch.tools.fit_chunked`, 3
+   processes of 1 epoch: chunk 0 against the monolithic run's first
+   epoch, the steps continuing from chunk to chunk, each later chunk's
+   first loss rerun here from its predecessor's 'last', each chunk's
+   host_rss_mb, the final 'last' loaded; and `python -m
+   plankassembly_tpu_torch.tools.leak_probe` on the card, its four
+   stages' RSS slopes.
+20. visible: the serving seeds rendered as visible lines by the port's
+   factory tools (every file at the JAX tools' digest), tested with the
+   released visible checkpoint (gqa_visible_ep79, MAX_INPUT_LENGTH 560)
+   through `python -m plankassembly_tpu_torch.trainer_visible test`, the
+   persistent decode with int8 cross K/V, f32 and bf16, against
+   fixtures/serve64_visible_jax_golden.npz (F1 at SERVE_F1_TOL; f32 every
+   program identical or its first difference a near-tie of the plain
+   decode; bf16 token agreement >= 0.99); kernels 1 and 2 against their
+   plain versions at the test batch's shape (B=64, bucket 512) and at the
+   model's whole input length (560), timed, with bounds.
 
 The flash phase also holds flash_attention at the raster encoder's shape
 (B=32, 8 heads over 8 kv heads, 192 keys, every one real), and the
@@ -212,6 +241,7 @@ prints no result.
 """
 import contextlib
 import faulthandler
+import glob
 import gzip
 import json
 import math
@@ -244,7 +274,7 @@ BUDGET = {"device": 240, "flash": 180, "decode": 240, "serve": 300,
           "train_kernel": 300, "train_step": 240, "fit": 420,
           "mha_kernels": 240, "mha_serve": 420, "sideface_serve": 300,
           "data_fit": 420, "export": 300, "raster": 300, "parallel": 420,
-          "factory": 300}
+          "factory": 300, "visible": 240, "finetune": 420}
 PHASES = tuple(BUDGET)
 
 # tolerances (the plain versions accumulate in f32 like the kernels; the
@@ -4554,6 +4584,662 @@ def phase_factory(serve_infos, train_infos, tmp):
     return res
 
 
+# ------------------------------------------------------------ phases 19-20
+FT_CONFIG = os.path.join(ROOT, "configs", "train_synthetic_gqa.yaml")
+VIS_CKPT = os.path.join(ROOT, "checkpoints", "gqa_visible_ep79.npz")
+VIS_CONFIG = os.path.join(ROOT, "configs", "train_synthetic_visible_gqa.yaml")
+# The fine-tune of ep221 (`tests/make_torch_finetune_golden.py`: B=8,
+# dropout 0, LR 1e-4, 3 epochs of the 64 training drawings, AUG_RATIO 0.1,
+# validation on the 64 serving drawings after each epoch) against JAX's on
+# the CPU. f32: step 1 is the train_step phase's bar (STEP_TOL, another
+# order of float32 sums; 1.2e-6 measured). Later steps: Adam turns
+# rounding-sized gradient differences into whole steps of the learning
+# rate, and this trajectory amplifies them ~1e3-fold by step 24: the port
+# started from ep221 with every weight one float32 ulp up departs from
+# itself by up to 5.7e-4 and 8.9e-4 relative (step 23), and three runs
+# of the port against JAX reached 1.6e-3 to 2.4e-3 there (NVIDIA H100
+# 80GB HBM3, 700 W; 1e-7 to 9e-7 at a tiny width,
+# `tests/test_torch_finetune.py`), so a bar below ~3e-3 fails on rounding
+# alone: 5e-3. The phase measures the one-ulp run every time. F1 at the serving bar, the last
+# validation's programs, the final parameters' L2 norms (relative) and
+# their dot with a seeded probe (its error over the leaf's norm times the
+# probe's norm: the relative weight error along a random direction).
+# bf16 against the f32 golden: step 1 at STEP_TOL's bf16 loss bar; later,
+# bf16 rounding alone moves this trajectory by far more than 2e-2: JAX's
+# own bf16 run of the protocol departs from its f32 golden by 1.6e-3 at
+# step 1 and up to 1.95 relative by step 24 (its losses fall to 1e-4),
+# so each step is held to twice that departure's running maximum (the
+# golden's `loss_bf16`), or 2e-2 where that is larger; every validation
+# F1 at the bf16 serving bar.
+FT_TOL = {"f32": {"loss_first": 1e-4, "loss": 5e-3, "f1": 0.002,
+                  "programs": 0.98, "norm": 1e-3, "probe": 1e-3},
+          "bf16": {"loss_first": 2e-2, "loss": 2e-2, "envelope": 2.0,
+                   "f1": 0.01}}
+FT_RESUME_TOL = 1e-6           # a resumed chunk's first loss, rerun here
+LEAK_ITERS = 20                # leak_probe iterations a stage
+VIS_AGREEMENT = 0.99
+VIS_WIDTH = 560                # the visible model's MAX_INPUT_LENGTH
+
+
+def _golden_flags(golden, *keys, drop=()):
+    """The `--key value` flags of the golden's stored overrides."""
+    flags = []
+    for key in keys:
+        for item in golden[key]:
+            k, v = str(item).split("=", 1)
+            if k not in drop:
+                flags += [f"--{k}", v]
+    return flags
+
+
+def _records(log_dir):
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return ([r for r in recs if "train/loss" in r],
+            [r for r in recs if "val/fmeasure" in r])
+
+
+def _meta(log_dir, tag):
+    with open(os.path.join(log_dir, "checkpoints", f"{tag}.meta.json")) as f:
+        return json.load(f)
+
+
+def _epoch_ms(steps):
+    """Host ms a step: the gaps between logged steps of one epoch (a log
+    reads the loss, which waits for the step), validation left out."""
+    gaps = [(b["time"] - a["time"]) * 1e3 for a, b in zip(steps, steps[1:])
+            if a["epoch"] == b["epoch"]]
+    return float(np.mean(gaps[1:])) if len(gaps) > 1 else float("nan")
+
+
+def _decoded_programs(trainer, state, loader):
+    """{name: samples} of a decode of every batch of `loader`, as the
+    trainer's validation decodes them."""
+    out = {}
+    try:
+        for batch in loader:
+            _, dec = trainer._decode_batch(state, batch)
+            samples = dec["samples"].cpu().numpy()
+            for i, name in enumerate(batch["name"]):
+                if batch["sample_valid"][i]:
+                    out[name] = samples[i]
+    finally:
+        loader.close()
+    return out
+
+
+def _same_programs(ours, names, gold, end):
+    return [np.array_equal(_upto_end(ours[n], end), _upto_end(g, end))
+            for n, g in zip(names, gold)]
+
+
+def _leaf_errors(params, golden):
+    """Worst relative L2-norm error and worst probe error of the leaves
+    against the golden's (the probes of `tests/make_torch_train_golden.py`)."""
+    from plankassembly_tpu_torch.train.state import tree_leaves
+    leaves = list(tree_leaves(params))
+    check(["/".join(p) for p, _ in leaves] == list(golden["leaf_names"]),
+          "finetune: parameter leaves differ from the golden's")
+    worst_norm = worst_probe = 0.0
+    for i, (_, t) in enumerate(leaves):
+        w = t.detach().double().cpu()
+        probe = torch.from_numpy(np.random.default_rng(i).standard_normal(
+            tuple(w.shape)).astype(np.float32)).double()
+        norm, ref = w.norm().item(), float(golden["leaf_norm"][i])
+        worst_norm = max(worst_norm, abs(norm - ref) / ref)
+        worst_probe = max(worst_probe, abs((w * probe).sum().item() - float(
+            golden["leaf_probe"][i])) / (ref * probe.norm().item()))
+    return worst_norm, worst_probe
+
+
+def _state_equal(a, b):
+    """Parameters, Adam moments and step of two TrainStates bit for bit."""
+    from plankassembly_tpu_torch.train.state import tree_leaves
+    pa = [t for _, t in tree_leaves(a.params)]
+    pb = [t for _, t in tree_leaves(b.params)]
+    oa = a.optimizer.state_dict()["state"]
+    ob = b.optimizer.state_dict()["state"]
+    same = a.step == b.step and len(pa) == len(pb) == len(oa) == len(ob)
+    same = same and all(torch.equal(x.detach(), y.detach())
+                        for x, y in zip(pa, pb))
+    for i in oa:
+        same = same and all(torch.equal(torch.as_tensor(oa[i][k]).cpu(),
+                                        torch.as_tensor(ob[i][k]).cpu())
+                            for k in ("step", "exp_avg", "exp_avg_sq"))
+    return same
+
+
+def _nudged_checkpoint(tmp):
+    """ep221 with every weight moved up by one float32 ulp, at its step:
+    the start of the port's own run that shows how far a rounding-sized
+    difference carries over the fine-tune."""
+    from plankassembly_tpu_torch.checkpoint import load_training_params
+    from plankassembly_tpu_torch.train.state import tree_leaves
+    params, _, step = load_training_params(CKPT)
+    path = os.path.join(tmp, "ep221_plus_one_ulp.npz")
+    np.savez(path, __step__=np.asarray(step), **{
+        "/".join(p): np.nextafter(t.numpy(), np.float32(np.inf))
+        for p, t in tree_leaves(params)})
+    return path
+
+
+def _traced_step(trainer, state, tmp):
+    """One fine-tune step under `trace_context`, read back by the port's
+    trace reader: (the top kernels under the step's annotation, busy
+    share over the union of intervals)."""
+    from plankassembly_tpu_torch.tools import trace_summary
+    from plankassembly_tpu_torch.train.loop import _to_device
+    from plankassembly_tpu_torch.utils.profiling import (
+        annotate, trace_context,
+    )
+    loader = trainer.train_dataloader()
+    try:
+        batch = _to_device(next(iter(loader)), trainer.device)
+    finally:
+        loader.close()
+    trainer.train_step_fn(state, batch, trainer._rng)   # warm
+    torch.cuda.synchronize()
+    trace_dir = os.path.join(tmp, "finetune_trace")
+    with trace_context(trace_dir):
+        with annotate("finetune_step"):
+            trainer.train_step_fn(state, batch, trainer._rng)
+            torch.cuda.synchronize()
+    return trace_summary.main([trace_dir, "--filter", "finetune_step",
+                               "--top", "12", "--gaps"])
+
+
+def phase_finetune(train_infos, serve_infos, tmp):
+    from plankassembly_tpu_torch import cli
+    from plankassembly_tpu_torch.ops import attention as A
+    from plankassembly_tpu_torch.ops import flash_train as FT
+    from plankassembly_tpu_torch.ops import persistent_decode as PD
+
+    golden = np.load(os.path.join(FIXTURES, "finetune_jax_golden.npz"))
+    root = os.path.join(tmp, "finetune_data")
+    os.makedirs(root)
+    data = ["--model.hparams.ROOT", root]
+    for split, infos in (("TRAIN", train_infos), ("VALID", serve_infos),
+                         ("TEST", serve_infos)):
+        path = os.path.join(tmp, f"finetune_{split.lower()}.txt")
+        with open(path, "w") as f:
+            f.write("".join(n + "\n" for n in _unpack_infos(infos, root)))
+        data += [f"--model.hparams.DATASETS_{split}", path]
+    protocol = _golden_flags(golden, "overrides", "port_decode")
+    argv = ["fit", "--config", FT_CONFIG, "--ckpt_path", CKPT, "--device",
+            DEVICE] + data + protocol
+    log("finetune: python -m plankassembly_tpu_torch.cli fit --config "
+        "configs/train_synthetic_gqa.yaml --ckpt_path "
+        "checkpoints/gqa_complete_ep221.npz " + " ".join(protocol))
+    g_loss, g_f1 = golden["loss"], golden["val_fmeasure"]
+    res = {"golden_f1": g_f1.tolist()}
+    # the trajectory bars are checked at the phase's end, so that a run
+    # past one still reports every other measurement of the phase
+    bars = []
+    for tag in ("f32", "bf16"):
+        A.launches = PD.launches = FT.fwd_launches = FT.bwd_launches = 0
+        t0 = time.perf_counter()
+        trainer, state = cli.main(argv + [
+            "--precision", tag, "--trainer.default_root_dir",
+            os.path.join(tmp, f"finetune_{tag}")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"fused_attention_train_fwd": FT.fwd_launches,
+                  "fused_attention_train_bwd": FT.bwd_launches,
+                  "flash_attention": A.launches,
+                  "persistent_greedy_decode": PD.launches}
+        steps, vals = _records(trainer.log_dir)
+        loss = np.array([r["train/loss"] for r in steps])
+        f1 = np.array([r["val/fmeasure"] for r in vals])
+        check([r["step"] for r in steps] == golden["step"].tolist()
+              and [r["epoch"] for r in steps] == golden["epoch"].tolist(),
+              f"finetune {tag}: steps {[r['step'] for r in steps]}")
+        check([r["step"] for r in vals] == golden["val_step"].tolist(),
+              f"finetune {tag}: validations at {[r['step'] for r in vals]}")
+        rel = np.abs(loss - g_loss) / g_loss
+        df1 = np.abs(f1 - g_f1)
+        meta = {t: _meta(trainer.log_dir, t) for t in ("best", "last")}
+        meta_ok = all((meta[t]["epoch"], meta[t]["step"]) == (
+            int(golden[f"{t}_epoch"]), int(golden[f"{t}_step"]))
+            for t in meta)
+        rss = [r["host_rss_mb"] for r in steps]
+        L = trainer.dims.num_encoder_layers + \
+            2 * trainer.dims.num_decoder_layers
+        n_val_batches = -(-len(serve_infos) // trainer.global_batch)
+        want = {"fused_attention_train_fwd": L * len(g_loss),
+                "fused_attention_train_bwd": L * len(g_loss),
+                "flash_attention": trainer.dims.num_encoder_layers
+                * n_val_batches * len(g_f1),
+                "persistent_greedy_decode": n_val_batches * len(g_f1)}
+        ms_step = _epoch_ms(steps)
+        log(f"finetune {tag} ({len(g_loss)} steps of B="
+            f"{trainer.cfg.BATCH_SIZE} from step {int(golden['import_step'])}"
+            f", {len(g_f1)} validations): loss relative to the JAX golden "
+            f"by step " + " ".join(f"{x:.1e}" for x in rel)
+            + f"; val F1 {' '.join(f'{x:.6f}' for x in f1)} vs JAX "
+            f"{' '.join(f'{x:.6f}' for x in g_f1)}; best/last meta "
+            f"{[(meta[t]['epoch'], meta[t]['step']) for t in meta]} equal "
+            f"{meta_ok}; {ms_step:.1f} ms/step (host clock, within an epoch)"
+            f", wall {wall:.1f} s; host_rss_mb {min(rss)}..{max(rss)}; "
+            f"launches {counts} (expected {want})")
+        tol = FT_TOL[tag]
+        out = {"loss_rel": rel.tolist(), "f1": f1.tolist(),
+               "ms_per_step": ms_step, "wall_s": wall, "launches": counts,
+               "rss_mb": [min(rss), max(rss)]}
+        # each step's bar: f32 a constant, bf16 the envelope of JAX's own
+        # bf16 departure from its f32 run
+        bar = np.full(len(rel), tol["loss"])
+        if tag == "bf16":
+            own = np.maximum.accumulate(
+                np.abs(golden["loss_bf16"] - g_loss) / g_loss)
+            bar = np.maximum(bar, tol["envelope"] * own)
+        bar[0] = tol["loss_first"]
+        if tag == "bf16":
+            log("  bf16: JAX's own bf16 run against its f32 golden, loss "
+                "relative by step " + " ".join(f"{x:.1e}" for x in np.abs(
+                    golden["loss_bf16"] - g_loss) / g_loss)
+                + "; JAX's bf16 val F1 " + " ".join(
+                    f"{x:.6f}" for x in golden["val_fmeasure_bf16"]))
+        over = np.flatnonzero(rel > bar)
+        bars.append((not over.size, f"finetune {tag}: loss rel "
+                     f"{rel[over].tolist()} at steps {(over + 1).tolist()} "
+                     f"over their bars {bar[over].tolist()}"))
+        bars.append((df1.max() <= tol["f1"], f"finetune {tag}: val F1 {f1} "
+                     f"vs {g_f1}"))
+        if tag == "f32":
+            names = list(golden["names"])
+            progs = _decoded_programs(trainer, state,
+                                      trainer.val_dataloader())
+            same = _same_programs(progs, names, golden["programs"],
+                                  trainer.dims.end)
+            worst_norm, worst_probe = _leaf_errors(state.params, golden)
+            restored = trainer.load_checkpoint(os.path.join(
+                trainer.log_dir, "checkpoints", "last"))
+            bitwise = _state_equal(state, restored)
+            log(f"  f32 last validation's programs identical to the JAX "
+                f"golden's {sum(same)}/{len(same)}; final leaves: worst norm "
+                f"rel {worst_norm:.2e} (tol {tol['norm']:g}), worst probe "
+                f"err {worst_probe:.2e} (tol {tol['probe']:g}); 'last' "
+                f"reloaded bit for bit (parameters, Adam moments, step) "
+                f"{bitwise}")
+            check(np.mean(same) >= tol["programs"],
+                  f"finetune f32: {sum(same)}/{len(same)} programs identical")
+            check(worst_norm <= tol["norm"], "finetune f32: leaf norms")
+            check(worst_probe <= tol["probe"], "finetune f32: leaf probes")
+            check(bitwise, "finetune f32: 'last' does not reload bit for bit")
+            out.update(identical=int(sum(same)), norm_rel=worst_norm,
+                       probe_err=worst_probe)
+            f32_loss = loss
+            del restored
+            # the port against itself: the same fit from ep221 with every
+            # weight one float32 ulp up (no validation, no checkpoint)
+            nudged, _ = cli.main(
+                [a if a != CKPT else _nudged_checkpoint(tmp) for a in argv]
+                + ["--precision", "f32", "--trainer.default_root_dir",
+                   os.path.join(tmp, "finetune_nudged"),
+                   "--trainer.check_val_every_n_epoch", str(len(g_f1) + 1),
+                   "--trainer.save_last", "false"])
+            nudged.close()
+            n_loss = np.array([r["train/loss"] for r in
+                               _records(nudged.log_dir)[0]])
+            self_rel = np.abs(n_loss - loss) / loss
+            log("  f32 from ep221 with every weight one ulp up, against the "
+                "f32 run: loss relative by step "
+                + " ".join(f"{x:.1e}" for x in self_rel))
+            out["self_rel"] = self_rel.tolist()
+            del nudged
+        check(meta_ok, f"finetune {tag}: checkpoint meta {meta}")
+        check(counts == want, f"finetune {tag}: launches {counts}, "
+              f"expected {want}")
+        note("finetune", f"{tag} loss rel max {rel.max():.1e} (step 1 "
+             f"{rel[0]:.1e}), val F1 {' '.join(f'{x:.6f}' for x in f1)} "
+             f"(JAX {' '.join(f'{x:.6f}' for x in g_f1)}), {ms_step:.1f} "
+             f"ms/step; launches fwd {counts['fused_attention_train_fwd']} "
+             f"bwd {counts['fused_attention_train_bwd']} flash "
+             f"{counts['flash_attention']} persistent "
+             f"{counts['persistent_greedy_decode']}")
+        res[tag] = out
+        if tag == "bf16":
+            # one step of the bf16 fine-tune traced, read by the port's
+            # trace reader (after the counted run)
+            tr = _traced_step(trainer, state, tmp)
+            top = [(n, c) for n, _, c, _ in tr["top"]]
+            log("finetune trace of one bf16 step (trace_summary --filter "
+                f"finetune_step --gaps): busy share {tr['busy_share']:.3f} "
+                f"(union of intervals), top kernels "
+                + "; ".join(f"{n[:48]} x{c} {us / 1e3:.3f} ms {100 * sh:.1f}%"
+                            for n, us, c, sh in tr["top"][:8]))
+            check(tr["kind"] == "device", "finetune trace: no device event")
+            check(any("train_" in n for n, _ in top),
+                  f"finetune trace: the training attention is not among "
+                  f"the top kernels: {top}")
+            res["trace"] = {"busy_share": tr["busy_share"],
+                            "top": [(n, us, c) for n, us, c, _ in tr["top"]]}
+        trainer.close()
+        del trainer, state
+        torch.cuda.empty_cache()
+
+    # the same protocol as 3 bounded-lifetime processes of 1 epoch each
+    chunk_root = os.path.join(tmp, "finetune_chunked")
+    cmd = [sys.executable, "-m", "plankassembly_tpu_torch.tools.fit_chunked",
+           "--trainer", "complete", "--config", FT_CONFIG,
+           "--total-epochs", str(len(g_f1)), "--epochs-per-chunk", "1",
+           "--root-dir", chunk_root, "--ckpt_path", CKPT, "--",
+           "--device", DEVICE, "--precision", "f32"] + data + \
+        _golden_flags(golden, "overrides", "port_decode",
+                      drop=("trainer.max_epochs",))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=420)
+    chunk_wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"fit_chunked: rc {out.returncode}\n"
+          f"{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+    done = [line for line in out.stdout.splitlines()
+            if line.startswith("[fit_chunked] chunk") and " done " in line]
+    runs = sorted(glob.glob(os.path.join(chunk_root, "version_*")))
+    check(len(runs) == len(g_f1) == len(done),
+          f"fit_chunked: {len(runs)} runs, {len(done)} chunks done")
+    per = len(g_loss) // len(g_f1)
+    first = int(golden["import_step"])
+    chunk_steps, chunk_rss, resumed_rel = [], [], []
+    from plankassembly_tpu_torch.config import load_config
+    from plankassembly_tpu_torch.train.loop import Trainer, _to_device
+    cfg = load_config(FT_CONFIG, dict(zip(
+        [a[2:] for a in (data + protocol)[::2]], (data + protocol)[1::2])))
+    for k, run in enumerate(runs):
+        steps, _ = _records(run)
+        chunk_steps.append([r["step"] for r in steps])
+        chunk_rss.append(max(r["host_rss_mb"] for r in steps))
+        check(chunk_steps[-1] == list(range(first + per * k + 1,
+                                            first + per * (k + 1) + 1)),
+              f"fit_chunked: chunk {k} steps {chunk_steps[-1]}")
+        check(_meta(run, "last")["step"] == first + per * (k + 1),
+              f"fit_chunked: chunk {k}'s last meta")
+        loss = np.array([r["train/loss"] for r in steps])
+        if k == 0:
+            chunk0_rel = np.abs(loss - f32_loss[:per]) / f32_loss[:per]
+        else:
+            # the previous chunk's `last` restored here and one step of the
+            # chunk's first batch (the loader seeded anew): its loss is the
+            # chunk's first, if the process resumed from the same state
+            tr = Trainer(cfg, log_dir=os.path.join(tmp, f"resume{k}"),
+                         compute_dtype=torch.float32, device=DEVICE)
+            st = tr.load_checkpoint(os.path.join(runs[k - 1], "checkpoints",
+                                                 "last"))
+            loader = tr.train_dataloader()
+            try:
+                batch = _to_device(next(iter(loader)), tr.device)
+            finally:
+                loader.close()
+            mets = tr.train_step_fn(st, batch, tr._rng)
+            resumed_rel.append(abs(float(mets["loss"]) - loss[0]) / loss[0])
+            tr.close()
+            del tr, st
+    final = Trainer(cfg, log_dir=os.path.join(tmp, "resume_final"),
+                    compute_dtype=torch.float32, device=DEVICE)
+    final_step = final.load_checkpoint(os.path.join(
+        runs[-1], "checkpoints", "last")).step
+    final.close()
+    log(f"finetune fit_chunked (python -m plankassembly_tpu_torch.tools."
+        f"fit_chunked, {len(runs)} processes of 1 epoch, f32): steps "
+        + " -> ".join(f"{s[0]}..{s[-1]}" for s in chunk_steps)
+        + f"; chunk 0's losses against the monolithic run's first {per}: "
+        f"worst rel {chunk0_rel.max():.1e}; each later chunk's first loss "
+        f"rerun here from the previous 'last': rel "
+        + " ".join(f"{x:.1e}" for x in resumed_rel)
+        + f"; final 'last' at step {final_step}; host_rss_mb per chunk "
+        f"{chunk_rss}; {chunk_wall:.1f} s")
+    for line in done:
+        log("  " + line)
+    check(chunk0_rel.max() <= FT_TOL["f32"]["loss"],
+          f"fit_chunked: chunk 0 against the monolithic run {chunk0_rel}")
+    check(max(resumed_rel) <= FT_RESUME_TOL,
+          f"fit_chunked: a chunk did not resume its predecessor's state: "
+          f"{resumed_rel}")
+    check(final_step == first + len(g_loss),
+          f"fit_chunked: the final 'last' is at step {final_step}")
+    res["chunked"] = {"wall_s": chunk_wall, "rss_mb": chunk_rss,
+                      "chunk0_rel": float(chunk0_rel.max()),
+                      "resumed_rel": resumed_rel}
+    # the raster training path's host memory, stage by stage, through the
+    # leak probe as a user runs it (a process of its own, the default
+    # model at 256^2 in 32^2 patches, B=16)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m",
+                          "plankassembly_tpu_torch.tools.leak_probe",
+                          "--iters", str(LEAK_ITERS), "--device", DEVICE],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    check(out.returncode == 0, f"leak_probe: rc {out.returncode}\n"
+          f"{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+    leak = [json.loads(line) for line in out.stdout.splitlines()
+            if line.startswith("{")]
+    log(f"finetune leak_probe ({LEAK_ITERS} iterations a stage, "
+        f"{time.perf_counter() - t0:.1f} s): " + "; ".join(
+            f"{r['stage']} {r['kb_per_iter']} KiB/iter, RSS {r['rss_mb']} MB"
+            for r in leak))
+    check([r["stage"] for r in leak] == ["dataset", "put", "step", "full"]
+          and all(r["device"].startswith("cuda") for r in leak),
+          f"leak_probe: {leak}")
+    res["leak_probe"] = leak
+    for ok, what in bars:
+        check(ok, what)
+    note("finetune", f"fit_chunked steps {first + 1}..{final_step} over "
+         f"{len(runs)} processes, chunk 0 rel {chunk0_rel.max():.1e}, "
+         f"resumed first-loss rel {max(resumed_rel):.1e}, host_rss_mb "
+         f"{chunk_rss}, {chunk_wall:.1f} s; trace busy share "
+         f"{res['trace']['busy_share']:.3f}; leak_probe KiB/iter "
+         + ", ".join(f"{r['stage']} {r['kb_per_iter']}" for r in leak))
+    return res
+
+
+def visible_kernel_checks(params, dims, batch, bucket):
+    """Kernels 1 and 2 against their plain versions at the visible model's
+    shape: B=64 at the test batch's kv bucket (`bucket`), the drawings'
+    own lengths, with times and bounds."""
+    from plankassembly_tpu_torch.decode import _pad_or_crop
+    from plankassembly_tpu_torch.models.model import encode
+    from plankassembly_tpu_torch.ops import persistent_decode as PD
+
+    inputs = _pad_or_crop(batch, bucket, dims)
+    mask = inputs["input_mask"]
+    lengths = (~mask).sum(dim=1).cpu().numpy()
+    B = mask.shape[0]
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        r = flash_case(B, dims.num_head, dims.kv_heads, bucket, lengths,
+                       False, dtype, seed=13,
+                       timing=True if dtype == torch.bfloat16 else "kernel")
+        tag = f"visible flash B={B} L={bucket} {str(dtype)[6:]}"
+        log(f"{tag}: max_abs_err {r['err']:.3e} (tol {FLASH_TOL[dtype]:g})"
+            + (f", err over the TRAIN_KERNEL_TOL bound {r['elem']:.3f}; "
+               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, sdpa "
+               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+               f"({r['bound_by']})" if "elem" in r
+               else f"; kernel {r['ms']:.4f} ms"))
+        check(r["err"] <= FLASH_TOL[dtype], f"{tag} disagrees")
+        check(r.get("elem", 0.0) <= 1.0, f"{tag} disagrees element by "
+              "element")
+        out[("flash", str(dtype)[6:])] = r
+    cd = torch.bfloat16
+    with torch.no_grad():
+        memory = encode(params, inputs, dims, compute_dtype=cd, flash=True)
+
+    def kern():
+        return PD.persistent_greedy_decode(params, memory, mask, dims,
+                                           compute_dtype=cd)
+
+    def plain():
+        return PD.greedy_decode_reference(params, memory, mask, dims,
+                                          compute_dtype=cd)
+
+    k_out, p_out = kern(), plain()
+    torch.cuda.synchronize()
+    same = (k_out["samples"] == p_out["samples"]).all(dim=1)
+    agree = (k_out["samples"] == p_out["samples"]).float().mean().item()
+    steps = min(k_out["num_steps"], p_out["num_steps"])
+    sel = same.to(DEVICE)
+    err = (k_out["hidden"][sel, :steps] - p_out["hidden"][sel, :steps]) \
+        .abs().max().item() if bool(same.any()) else float("nan")
+    ms = cuda_ms(kern, reps=3, warmup=1)
+    plain_ms = cuda_ms(plain, reps=2, warmup=0)
+    bound_ms, bound_by = decode_bound(dims, params, memory, mask,
+                                      k_out["num_steps"], cd)
+    log(f"visible decode bf16 B={B} Li={bucket}: token agreement with the "
+        f"plain version {agree:.4f}, identical rows {same.float().mean():.3f}"
+        f", hidden max_abs_err on identical rows {err:.3e}; num_steps kernel "
+        f"{k_out['num_steps']} plain {p_out['num_steps']}; kernel {ms:.2f} "
+        f"ms ({ms / k_out['num_steps']:.3f} ms/step, the call's encoder "
+        f"outside), plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by})")
+    check(agree >= 0.9, f"visible decode: token agreement {agree}")
+    check(k_out["num_steps"] == p_out["num_steps"], "visible decode: steps")
+    out["decode"] = {"err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "steps": int(k_out["num_steps"]), "agreement": agree}
+    return out
+
+
+def phase_visible(tmp):
+    import types
+    from plankassembly_tpu_torch import cli
+    from plankassembly_tpu_torch.checkpoint import load_checkpoint
+    from plankassembly_tpu_torch.decode import pick_kv_bucket
+    from plankassembly_tpu_torch.ops import persistent_decode as PD
+    from plankassembly_tpu_torch.train.loop import VisibleTrainer, _to_device
+
+    golden = np.load(os.path.join(FIXTURES,
+                                  "serve64_visible_jax_golden.npz"))
+    with open(os.path.join(FIXTURES, "factory_jax_golden.json")) as f:
+        factory = json.load(f)
+    root = os.path.join(tmp, "visible")
+    secs = _dataset(root, FACTORY_SERVE_SEED, ("visible",),
+                    factory["generate_flags"][4:])
+    files = {k: v for k, v in _digests(root).items()
+             if not k.startswith("splits")}
+    bad = sorted(k for k, v in files.items()
+                 if factory["sha256"].get(k) != v)
+    check(not bad, f"visible: {len(bad)} files differ from the JAX "
+          f"golden: {bad[:5]}")
+    infos = os.path.join(root, "data", "visible", "infos")
+    split = os.path.join(root, "splits", "test.txt")
+    names = list(golden["names"])
+    res = {"tool_seconds": secs}
+    # the release's parameters as the trainer's decode takes them
+    params, _ = load_checkpoint(VIS_CKPT, device=DEVICE)
+    state = types.SimpleNamespace(params=params)
+    for tag in ("f32", "bf16"):
+        _reset_counts()
+        t0 = time.perf_counter()
+        trainer, scores = cli.main(
+            ["test", "--config", VIS_CONFIG, "--ckpt_path", VIS_CKPT,
+             "--device", DEVICE, "--precision", tag,
+             "--model.hparams.ROOT", infos,
+             "--model.hparams.DATASETS_TEST", split,
+             "--trainer.decode_impl", "persistent",
+             "--trainer.kv_quant", "true",
+             "--trainer.default_root_dir", os.path.join(tmp, "visible_runs")],
+            trainer_cls=VisibleTrainer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _launch_counts()
+        dims = trainer.dims
+        end = dims.end
+        loader = trainer.test_dataloader()
+        batches = list(loader)
+        loader.close()
+        buckets = [pick_kv_bucket(b["input_mask"],
+                                  quantum=trainer.cfg.trainer.kv_quantum)
+                   for b in batches]
+        progs = _decoded_programs(trainer, state, trainer.test_dataloader())
+        gold = golden[f"programs_{tag}"]
+        same = _same_programs(progs, names, gold, end)
+        agree = _agreement([progs[n] for n in names], gold, end)
+        g = [float(golden[f"{k}_{tag}"]) for k in ("precision", "recall",
+                                                   "fmeasure")]
+        log(f"visible {tag} (python -m plankassembly_tpu_torch."
+            f"trainer_visible test, gqa_visible_ep79, MAX_INPUT_LENGTH "
+            f"{trainer.cfg.DATA.MAX_INPUT_LENGTH}, persistent + kv_quant): "
+            f"P {scores[0]:.6f} R {scores[1]:.6f} F1 {scores[2]:.6f} vs JAX "
+            f"{g[0]:.6f} {g[1]:.6f} {g[2]:.6f} (tol {SERVE_F1_TOL[tag]}); "
+            f"identical programs {sum(same)}/{len(same)}, token agreement "
+            f"{agree:.4f}; buckets {buckets} (golden "
+            f"{golden['buckets'].tolist()}), input lengths "
+            f"{int(golden['input_lengths'].min())}.."
+            f"{int(golden['input_lengths'].max())}; {wall:.1f} s; launches "
+            f"{counts}")
+        check(buckets == golden["buckets"].tolist(),
+              f"visible {tag}: buckets {buckets}")
+        check(abs(scores[2] - g[2]) <= SERVE_F1_TOL[tag],
+              f"visible {tag}: F1 {scores[2]} vs golden {g[2]}")
+        if tag == "f32" and not all(same):
+            # a program that differs must do so past a near-tie of the
+            # plain decode, which runs JAX's arithmetic
+            diff = {i: int(np.flatnonzero(progs[names[i]] != gold[i])[0])
+                    for i in np.flatnonzero(~np.array(same))}
+            rows = {n: i for i, n in enumerate(batches[0]["name"])}
+            arrays = _to_device(batches[0], trainer.device)
+            inputs = {k: v for k, v in arrays.items()
+                      if k.startswith("input")}
+            from plankassembly_tpu_torch.decode import _pad_or_crop
+            from plankassembly_tpu_torch.models.model import encode
+            inputs = _pad_or_crop(inputs, buckets[0], dims)
+            with torch.no_grad():
+                memory = encode(state.params, inputs, dims,
+                                compute_dtype=torch.float32, flash=True)
+            gaps = near_tie_gaps(lambda: PD.greedy_decode_reference(
+                state.params, memory, inputs["input_mask"], dims,
+                compute_dtype=torch.float32),
+                {rows[names[i]]: t for i, t in diff.items()})
+            log("  f32 programs that differ from the golden, (first "
+                "differing step, relative top-2 gap of the plain decode "
+                "there): {" + ", ".join(
+                    f"{names[i]}: ({t}, {gaps[rows[names[i]]]:.2e})"
+                    for i, t in diff.items()) + "}")
+            check(all(gaps[rows[names[i]]] < NEAR_TIE for i in diff),
+                  f"visible f32: a program differs from the golden past a "
+                  f"near-tie: {gaps}")
+        if tag == "bf16":
+            check(agree >= VIS_AGREEMENT,
+                  f"visible bf16: token agreement {agree}")
+        check(counts["flash_attention"] == dims.num_encoder_layers
+              * len(batches) and counts["persistent_greedy_decode"]
+              == len(batches), f"visible {tag}: launches {counts}")
+        res[tag] = {"f1": scores[2], "golden_f1": g[2],
+                    "identical": int(sum(same)), "agreement": agree,
+                    "launches": counts, "buckets": buckets, "wall_s": wall}
+        note("visible", f"{tag} F1 {scores[2]:.6f} (JAX {g[2]:.6f}) "
+             f"identical {sum(same)}/{len(same)} agreement {agree:.4f} at "
+             f"bucket {buckets}; launches flash {counts['flash_attention']} "
+             f"persistent {counts['persistent_greedy_decode']}")
+        if tag == "bf16":
+            # at the served bucket, and at the model's whole input length
+            # (MAX_INPUT_LENGTH 560: the packed width padded to it), the
+            # width of a request whose drawing fills it
+            batch = {k: v for k, v in _to_device(
+                batches[0], trainer.device).items() if k.startswith("input")}
+            res["kernels"] = visible_kernel_checks(params, dims, batch,
+                                                   buckets[0])
+            check(trainer.cfg.DATA.MAX_INPUT_LENGTH == VIS_WIDTH,
+                  "visible: not the released model's input length")
+            res["kernels_full"] = visible_kernel_checks(params, dims, batch,
+                                                        VIS_WIDTH)
+        trainer.close()
+        del trainer
+        torch.cuda.empty_cache()
+    for key, width in (("kernels", res["bf16"]["buckets"][0]),
+                       ("kernels_full", VIS_WIDTH)):
+        k = res[key]
+        note("visible", f"L={width}: flash bf16 "
+             f"{k[('flash', 'bfloat16')]['ms']:.4f} ms (plain "
+             f"{k[('flash', 'bfloat16')]['plain_ms']:.4f}, sdpa "
+             f"{k[('flash', 'bfloat16')]['library_ms']:.4f}, bound "
+             f"{k[('flash', 'bfloat16')]['bound_ms']:.4f}); persistent "
+             f"decode {k['decode']['ms']:.2f} ms for {k['decode']['steps']} "
+             f"steps (plain {k['decode']['plain_ms']:.2f}, bound "
+             f"{k['decode']['bound_ms']:.4f})")
+    return res
+
+
 def summarize(res):
     """One line per phase that ran with its headline numbers, kept short:
     they stand in the last lines of the output."""
@@ -4791,6 +5477,12 @@ def main() -> int:
         if "factory" in phases:
             with Phase("factory"):
                 res["factory"] = phase_factory(infos, train_infos, tmp)
+        if "visible" in phases:
+            with Phase("visible"):
+                res["visible"] = phase_visible(tmp)
+        if "finetune" in phases:
+            with Phase("finetune"):
+                res["finetune"] = phase_finetune(train_infos, infos, tmp)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     summarize(res)
     if set(phases) != set(PHASES):
@@ -4911,6 +5603,43 @@ def main() -> int:
     fa = res["factory"]["launches"]
     flash_entry["launches_factory"] = fa["flash_attention"]
     decode_entry["launches_factory"] = fa["persistent_greedy_decode"]
+    # the fine-tune of ep221 (each precision's fit: kernel 3 in every step,
+    # kernels 1 and 2 in every validation) and the visible model's test,
+    # with kernels 1 and 2 at its shape (560 tokens)
+    ft = res["finetune"]["f32"]["launches"]
+    fwd["launches_finetune"] = ft["fused_attention_train_fwd"]
+    bwd["launches_finetune"] = ft["fused_attention_train_bwd"]
+    flash_entry["launches_finetune"] = ft["flash_attention"]
+    decode_entry["launches_finetune"] = ft["persistent_greedy_decode"]
+    vis = res["visible"]
+    flash_entry["launches_visible"] = vis["bf16"]["launches"][
+        "flash_attention"]
+    decode_entry["launches_visible"] = vis["bf16"]["launches"][
+        "persistent_greedy_decode"]
+    vb, vk = vis["bf16"]["buckets"][0], vis["kernels"]
+    fl = vk[("flash", "bfloat16")]
+    flash_entry["visible_shape"] = {
+        "shape": f"B=64 H=8 Hkv=2 L={vb} bf16, gqa_visible_ep79",
+        **{k: fl[k] for k in ("err", "ms", "plain_ms", "library_ms",
+                              "bound_ms", "bound_by")},
+        "ms_f32": vk[("flash", "float32")]["ms"]}
+    decode_entry["visible_shape"] = {
+        "shape": f"B=64 Li={vb} bf16, gqa_visible_ep79",
+        **{k: vk["decode"][k] for k in ("err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "steps", "agreement")},
+        "library_ms": None}
+    vf = vis["kernels_full"]
+    fl = vf[("flash", "bfloat16")]
+    flash_entry["visible_full_shape"] = {
+        "shape": f"B=64 H=8 Hkv=2 L={VIS_WIDTH} bf16, gqa_visible_ep79",
+        **{k: fl[k] for k in ("err", "ms", "plain_ms", "library_ms",
+                              "bound_ms", "bound_by")},
+        "ms_f32": vf[("flash", "float32")]["ms"]}
+    decode_entry["visible_full_shape"] = {
+        "shape": f"B=64 Li={VIS_WIDTH} bf16, gqa_visible_ep79",
+        **{k: vf["decode"][k] for k in ("err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "steps", "agreement")},
+        "library_ms": None}
     kernels = [
         flash_entry,
         decode_entry,

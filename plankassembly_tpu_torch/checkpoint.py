@@ -72,12 +72,22 @@ def _training_file(path: str) -> str:
     return path if path.endswith(".pt") else path + ".pt"
 
 
+def npz_step(path) -> int:
+    """The step a released npz was saved at (its ``__step__``, as the JAX
+    package's `tools/export_checkpoint.py` writes and its import restores),
+    0 where it has none."""
+    with np.load(path, allow_pickle=False) as z:
+        return int(z["__step__"]) if "__step__" in z.files else 0
+
+
 def load_training_params(path: str) -> tuple[dict, dict | None, int]:
     """(params as float32 CPU tensors, Adam state dict or None, step) of a
     training checkpoint (`<tag>.pt`, or its path without the suffix) or of
-    a released `.npz` (no optimizer state, step 0)."""
+    a released `.npz` (no optimizer state; its ``__step__``, else 0, as
+    the JAX package's import gives it)."""
     if path.endswith(".npz"):
-        return tree_map(lambda t: t.float(), load_npz(path)), None, 0
+        return (tree_map(lambda t: t.float(), load_npz(path)), None,
+                npz_step(path))
     blob = torch.load(_training_file(path), map_location="cpu",
                       weights_only=True)
     params = tree_map(lambda t: t.float(), _unflatten(blob["params"]))

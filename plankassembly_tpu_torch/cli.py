@@ -12,7 +12,8 @@
 arguments for the visible-lines, sideface and raster/ViT modalities.
 
 `--device cuda|cpu` picks the device (default cuda; without CUDA it
-raises rather than run on the CPU). Several processes train one model when
+raises rather than run on the CPU), `--precision bf16|f32` the compute
+dtype (default bf16, as the JAX trainer's). Several processes train one model when
 the environment describes a process group (`parallel/multihost.py`), for
 instance on four GPUs of one host:
 
@@ -33,6 +34,7 @@ from plankassembly_tpu_torch.config import load_config
 from plankassembly_tpu_torch.parallel import multihost
 
 SUBCOMMANDS = ("fit", "test", "validate")
+PRECISIONS = {"bf16": "bfloat16", "f32": "float32"}
 
 
 def parse_args(argv: list[str]):
@@ -80,9 +82,15 @@ def main(argv: list[str] | None = None, trainer_cls=None):
 
     argv = argv if argv is not None else sys.argv[1:]
     subcommand, config_path, ckpt_path, device, overrides = parse_args(argv)
+    precision = overrides.pop("precision", "bf16")
+    if precision not in PRECISIONS:
+        raise SystemExit(f"--precision {precision!r}: one of "
+                         f"{sorted(PRECISIONS)}")
     cfg = load_config(config_path, overrides)
     multihost.initialize_from_env(device=device)
-    trainer = trainer_cls(cfg, device=device)
+    import torch
+    trainer = trainer_cls(cfg, device=device, compute_dtype=getattr(
+        torch, PRECISIONS[precision]))
     if multihost.is_main():
         print(f"log_dir: {trainer.log_dir}", flush=True)
     try:

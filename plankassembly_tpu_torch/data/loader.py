@@ -51,14 +51,16 @@ def collate(samples: list[dict]) -> dict:
 class DataLoader:
     """Batched loader: shuffling, drop_last, a fixed order, padding of the
     last batch, threaded workers and a prefetch thread. The dataset makes
-    one sample with `read(index, rng)`.
+    one sample with `draw(index, rng)` and `build(index, drawn)`.
 
-    For a dataset with `augmentation`, each read gets a RandomState of its
-    own, seeded in index order from the dataset's `rng`, so what a batch
-    draws does not depend on the number of workers or their scheduling.
-    The seeds of every row of the global batch are drawn, so a rank that
-    packs `rows` (lo, hi) of it packs exactly what one process packs
-    there, augmentation included."""
+    For a dataset with `augmentation`, the random draws of every row of
+    the global batch are made in row order on the producer thread, from
+    the dataset's one `rng` (`draw`), and the rest of each read on the
+    workers (`build`). So the rows are the JAX loader's, whose single
+    packer draws them in that order from numpy's global RNG; they do not
+    depend on the number of workers or their scheduling; and a rank that
+    packs `rows` (lo, hi) of the batch packs exactly what one process
+    packs there, augmentation included."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0, order=None,
@@ -82,20 +84,19 @@ class DataLoader:
         """The samples of this loader's `rows` of the global batch `idx`."""
         idx = [int(i) for i in idx]
         if getattr(self.dataset, "augmentation", False):
-            seeds = self.dataset.rng.randint(0, 2 ** 31 - 1, size=len(idx))
-            rngs = [np.random.RandomState(s) for s in seeds]
+            drawn = [self.dataset.draw(i, self.dataset.rng) for i in idx]
         else:
-            rngs = [None] * len(idx)
+            drawn = [None] * len(idx)
         lo, hi = self.rows
-        idx, rngs = idx[lo:hi], rngs[lo:hi]
+        idx, drawn = idx[lo:hi], drawn[lo:hi]
         if self.num_workers > 1:
             if self._pool is None:
                 from concurrent.futures import ThreadPoolExecutor
                 self._pool = ThreadPoolExecutor(
                     max_workers=self.num_workers,
                     thread_name_prefix="loader-worker")
-            return list(self._pool.map(self.dataset.read, idx, rngs))
-        return [self.dataset.read(i, rng) for i, rng in zip(idx, rngs)]
+            return list(self._pool.map(self.dataset.build, idx, drawn))
+        return [self.dataset.build(i, d) for i, d in zip(idx, drawn)]
 
     def close(self):
         if self._pool is not None:

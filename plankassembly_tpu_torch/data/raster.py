@@ -21,7 +21,7 @@ import torch
 from plankassembly_tpu_torch.config import Config
 from plankassembly_tpu_torch.data import cache as sample_cache
 from plankassembly_tpu_torch.data import geometry as geo
-from plankassembly_tpu_torch.data.line_data import cached_name
+from plankassembly_tpu_torch.data.line_data import NoisyReads
 from plankassembly_tpu_torch.data.noise import add_noise
 from plankassembly_tpu_torch.data.packing import pack_output_sequence
 
@@ -182,7 +182,7 @@ def rasterize_device(lines, views, intens, image_size: int,
     return torch.where(any_vis, 1.0, torch.where(any_hid, 0.5, 0.0))
 
 
-class RasterDataset:
+class RasterDataset(NoisyReads):
     """Map-style dataset of the raster/ViT modality: index -> the packed
     segments (`pack_lines`; `device_rasterize=True`, the default) or a
     host-drawn `input_image` (False), beside the same shape-program
@@ -218,23 +218,24 @@ class RasterDataset:
                 cache_dir, key, len(info_files),
                 lambda i: self._pack(i, False, None)[1], progress_every=5000)
 
-    def __len__(self) -> int:
-        return len(self.info_files)
-
-    def _pack(self, index: int, augment: bool, rng):
-        """(name, arrays) of one sample, augmented with noise drawn from
-        `rng` if `augment`."""
+    def _load(self, index: int):
         with open(os.path.join(self.root, self.info_files[index])) as f:
             info = json.loads(f.read())
         linestrings = [geo.from_geojson(svg) for svg in info["svgs"]]
         views = np.array(info["views"], dtype=np.int64)
         types = np.array(info["types"], dtype=np.int64)
+        return info, linestrings, views, types
+
+    def _noisy(self, index: int, rng):
+        info, linestrings, views, types = self._load(index)
+        return (info, *add_noise(linestrings, views, types,
+                                 self.cfg.DATA.NOISE_RATIO,
+                                 self.cfg.DATA.NOISE_LENGTH, rng=rng))
+
+    def _pack_drawn(self, index: int, drawn):
+        info, linestrings, views, types = drawn or self._load(index)
         planks = np.array(info["coords"]).flatten()
         attach = np.array(info["attach"]).flatten()
-        if augment:
-            linestrings, views, types = add_noise(
-                linestrings, views, types, self.cfg.DATA.NOISE_RATIO,
-                self.cfg.DATA.NOISE_LENGTH, rng=rng)
         outputs = pack_output_sequence(planks, attach, self.cfg.DATA,
                                        self.cfg.TOKEN)
         if self.device_rasterize:
@@ -243,18 +244,3 @@ class RasterDataset:
             inputs = {"input_image": rasterize_views(linestrings, views, types,
                                                      self.image_size)}
         return info["name"], {**inputs, **outputs}
-
-    def __getitem__(self, index: int) -> dict:
-        return self.read(index, self.rng)
-
-    def read(self, index: int, rng=None) -> dict:
-        """One read, drawing its augmentation from `rng` (default the
-        dataset's)."""
-        rng = rng or self.rng
-        augment = (self.augmentation
-                   and rng.random() < self.cfg.DATA.AUG_RATIO)
-        if self._cache is not None and not augment:
-            return {"name": cached_name(self.info_files[index]),
-                    **self._cache.row(index)}
-        name, arrays = self._pack(index, augment, rng)
-        return {"name": name, **arrays}

@@ -9,8 +9,9 @@ merge of colinear faces, whose result depends on its order (the list pops
 in reverse index order, the query's bounds grown over the colinear set).
 
 One difference from the JAX dataset: a read draws its augmentation from
-an explicit `rng` (`read(index, rng)`, `_pack(index, augment, rng)`), as
-the port's `LineDataset` does, so the port's loaders can seed each read.
+an explicit `rng` (`read(index, rng)`, `_pack(index, augment, rng)`), and
+in two parts, as the port's `LineDataset` does (`NoisyReads`): the loader
+makes each row's draws in turn and leaves the polygonizer to its workers.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import numpy as np
 from plankassembly_tpu_torch.config import Config
 from plankassembly_tpu_torch.data import cache as sample_cache
 from plankassembly_tpu_torch.data import geometry as geo
-from plankassembly_tpu_torch.data.line_data import cached_name
+from plankassembly_tpu_torch.data.line_data import NoisyReads
 from plankassembly_tpu_torch.data.noise import add_noise
 from plankassembly_tpu_torch.data.packing import (
     pack_input_sequence, pack_output_sequence,
@@ -145,7 +146,7 @@ def extract_sidefaces(linestrings, views, max_thickness, merge_tolerance,
     return faces, np.array(faceviews, dtype=np.int64)
 
 
-class SidefaceDataset:
+class SidefaceDataset(NoisyReads):
     """Map-style dataset for the sideface modality: index -> dict of numpy
     arrays + 'name'.
 
@@ -184,9 +185,6 @@ class SidefaceDataset:
                 cache_dir, key, len(info_files), self._pack_clean,
                 progress_every=2000)
 
-    def __len__(self) -> int:
-        return len(self.info_files)
-
     def _load(self, index: int):
         with open(os.path.join(self.root, self.info_files[index])) as f:
             info = json.loads(f.read())
@@ -220,21 +218,28 @@ class SidefaceDataset:
         faces, faceviews = self._clean_faces(index, linestrings, views)
         return self._pack_faces(faces, faceviews, planks, attach)
 
-    def _pack(self, index: int, augment: bool, rng):
-        """(name, arrays) of one sample, augmented with noise drawn from
-        `rng` if `augment`; the clean sample if no side face is found."""
-        name, linestrings, views, types, planks, attach = self._load(index)
+    def _noisy(self, index: int, rng):
+        loaded = self._load(index)
+        _, linestrings, views, types, _, _ = loaded
+        noisy_lines, noisy_views, _ = add_noise(
+            linestrings, views, types,
+            self.cfg.DATA.NOISE_RATIO, self.cfg.DATA.NOISE_LENGTH, rng=rng)
+        return loaded, noisy_lines, noisy_views
 
+    def _pack_drawn(self, index: int, drawn):
+        """(name, arrays) of one sample, its faces extracted from the noisy
+        lines of `drawn` if given; the clean sample if no side face is
+        found."""
         faces = np.zeros((0, 4))
         faceviews = np.zeros((0,), dtype=np.int64)
-        if augment:
-            noisy_lines, noisy_views, _ = add_noise(
-                linestrings, views, types,
-                self.cfg.DATA.NOISE_RATIO, self.cfg.DATA.NOISE_LENGTH,
-                rng=rng)
+        if drawn is None:
+            loaded = self._load(index)
+        else:
+            loaded, noisy_lines, noisy_views = drawn
             faces, faceviews = extract_sidefaces(
                 noisy_lines, noisy_views, self.max_thickness,
                 self.merge_tolerance, self.min_thickness)
+        name, linestrings, views, _, planks, attach = loaded
 
         if len(faces) == 0:
             if self._cache is not None:
@@ -242,18 +247,3 @@ class SidefaceDataset:
             faces, faceviews = self._clean_faces(index, linestrings, views)
 
         return name, self._pack_faces(faces, faceviews, planks, attach)
-
-    def __getitem__(self, index: int) -> dict:
-        return self.read(index, self.rng)
-
-    def read(self, index: int, rng=None) -> dict:
-        """One read, drawing its augmentation from `rng` (default the
-        dataset's)."""
-        rng = rng or self.rng
-        augment = (self.augmentation
-                   and rng.random() < self.cfg.DATA.AUG_RATIO)
-        if self._cache is not None and not augment:
-            return {"name": cached_name(self.info_files[index]),
-                    **self._cache.row(index)}
-        name, arrays = self._pack(index, augment, rng)
-        return {"name": name, **arrays}

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from plankassembly_tpu_torch.checkpoint import (
-    _training_file, load_npz, tree_map,
+    _training_file, load_training_params,
 )
 
 
@@ -65,9 +65,7 @@ def do_import(args):
         init_state, make_optimizer, tree_leaves,
     )
 
-    params = tree_map(lambda t: t.float(), load_npz(args.npz))
-    with np.load(args.npz, allow_pickle=False) as z:
-        step = int(z["__step__"]) if "__step__" in z.files else 0
+    params, _, step = load_training_params(args.npz)
     opt_state = init_state(params, make_optimizer(args.lr)).optimizer \
         .state_dict()
     out = os.path.abspath(_training_file(args.out))

@@ -12,7 +12,10 @@
   `attach` key.
 
 Adam, validation by greedy decode, prediction-JSON dumps bit-compatible
-with the reference's, and checkpoints. `trainer.sample_cache` reads the
+with the reference's, and checkpoints. A fit from a checkpoint (`fit
+--ckpt_path`) continues its step, the release's `__step__` for an npz
+with a fresh Adam state; its epoch counter starts at 0 and its loader is
+seeded anew, as JAX's (`tools/fit_chunked.py` chains such fits). `trainer.sample_cache` reads the
 clean samples from a packed-sample cache (`data/cache.py`) under
 `<default_root_dir>/.sample_cache`; `trainer.device_data` also holds the
 cached training split on the device and assembles each batch there
@@ -45,7 +48,9 @@ Differences from the JAX trainer:
 - checkpoints are `torch.save` files (params, Adam state, step) beside the
   same `.meta.json`, not orbax directories;
 - the augmentation RNG is a `np.random.RandomState(seed_everything)`, not
-  numpy's unseeded global one;
+  numpy's unseeded global one; the loader draws every row from it in row
+  order, so a fit sees the rows JAX's fit sees with numpy's global RNG
+  seeded alike (as the reference's Lightning `seed_everything` seeds it);
 - `device_data` with the sideface modality trains: the JAX device loader
   calls the sideface dataset's `_pack` with a signature that dataset does
   not have, so an augmented row raises there.
@@ -83,7 +88,7 @@ from plankassembly_tpu_torch.train.state import (
     TrainState, init_state, make_device_train_step, make_optimizer,
     make_train_step, tree_leaves,
 )
-from plankassembly_tpu_torch.utils.profiling import StepTimer
+from plankassembly_tpu_torch.utils.profiling import StepTimer, host_rss_kb
 from plankassembly_tpu_torch.utils.tb_writer import TensorBoardWriter
 
 
@@ -349,6 +354,9 @@ class Trainer:
                    "train/accuracy": float(mets["accuracy"])}
         if timer.steps_per_sec:
             payload["train/steps_per_sec"] = round(timer.steps_per_sec, 3)
+        # host memory over a long run, in MiB (JAX's loop logs it too)
+        rss = host_rss_kb()
+        payload["host_rss_mb"] = rss // 1024 if rss >= 0 else -1
         self.logger.log(step, payload)
 
     # ------------------------------------------------------------------

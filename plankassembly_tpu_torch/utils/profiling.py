@@ -5,7 +5,8 @@
   as a Chrome trace (open it in Perfetto or chrome://tracing);
 - `annotate(name)`: a named region on that timeline
   (`torch.profiler.record_function`);
-- `StepTimer`: wall-clock step timing with an EMA.
+- `StepTimer`: wall-clock step timing with an EMA;
+- `host_rss_kb()`: the process's resident set size (`/proc/self/status`).
 """
 from __future__ import annotations
 
@@ -37,6 +38,19 @@ def trace_context(log_dir: str, enabled: bool = True):
 def annotate(name: str):
     """Named sub-region for the profiler timeline."""
     return torch.profiler.record_function(name)
+
+
+def host_rss_kb() -> int:
+    """The process's resident set size in KiB (VmRSS of
+    `/proc/self/status`), -1 where that file cannot be read."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS"):
+                    return int(line.split()[1])
+    except OSError:
+        pass
+    return -1
 
 
 class StepTimer:

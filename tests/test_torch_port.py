@@ -71,6 +71,9 @@ import plankassembly_tpu_torch.tools.convert_reference_checkpoint
 import plankassembly_tpu_torch.tools.build_gt_mesh
 import plankassembly_tpu_torch.tools.build_pred_mesh
 import plankassembly_tpu_torch.tools.build_html
+import plankassembly_tpu_torch.tools.fit_chunked
+import plankassembly_tpu_torch.tools.trace_summary
+import plankassembly_tpu_torch.tools.leak_probe
 from plankassembly_tpu_torch.config import config_from_hparams_file
 cfg = config_from_hparams_file(sys.argv[1])
 leaked = sorted(m for m in sys.modules if sys.modules[m] is not None and (

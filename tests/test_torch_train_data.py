@@ -172,8 +172,9 @@ def test_dataloader_order_matches_jax(info_dir):
 
 
 def test_augmented_batches_do_not_depend_on_workers(info_dir):
-    """Each augmented read draws from its own RandomState, seeded in index
-    order, so 0 and 4 thread workers give the same batches."""
+    """Every row's augmentation draws are made in row order from the
+    dataset's one RandomState, on the loader's own thread, so 0 and 4
+    thread workers give the same batches."""
     root, names = info_dir
     cfg, _ = _cfg()
     cfg = dataclasses.replace(cfg, DATA=dataclasses.replace(
