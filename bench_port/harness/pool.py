@@ -1,0 +1,43 @@
+"""The drawing pool: 128 drawings (bench_port/data/serve64.json.gz and
+train64.json.gz, frozen copies of the program's fixtures; 42-260 lines
+each) from which every cell's requests are drawn by the seed.
+
+A request is an info JSON as users send it to a complete-lines
+configuration: `lines` with their views and line types.
+"""
+from __future__ import annotations
+
+import gzip
+import json
+import os
+
+import numpy as np
+
+DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "data")
+FILES = ("serve64.json.gz", "train64.json.gz")
+
+
+def drawings() -> list[dict]:
+    out = []
+    for f in FILES:
+        with gzip.open(os.path.join(DATA, f), "rt") as fh:
+            out += json.load(fh)
+    return out
+
+
+def requests() -> list[dict]:
+    """The pool as request bodies."""
+    return [{"name": info["name"], "views": info["views"],
+             "types": info["types"], "lines": info["lines"]}
+            for info in drawings()]
+
+
+def balanced_order(n_pool: int, count: int, seed: int) -> np.ndarray:
+    """`count` pool indices in which every drawing appears equally often
+    (within one), in an order drawn from the seed: every seed sends the
+    same set of sizes."""
+    reps = -(-count // n_pool)
+    rng = np.random.default_rng([seed, 1])
+    return np.concatenate([rng.permutation(n_pool)
+                           for _ in range(reps)])[:count]
