@@ -31,7 +31,9 @@ instead of hanging, each printing one line (or a few) when it ends:
    instantiate ms and its replays' ms, the device idle share over the call,
    one step's kernels by device time, the loop with every bf16 product
    in the SIMT order (time, token agreement) and the loop without
-   programmatic dependent launch (time, equal samples);
+   programmatic dependent launch (time, equal samples); at B=32 and B=64
+   the route route_of takes, its ms a step, nodes a step and plan, and its
+   tokens and steps against the plain version's;
 4. the main path: load checkpoints/gqa_complete_ep221.npz, pack the 64
    fixture drawings, serve them through make_live_backend + BatchingServer
    as requests of 8, 24 and 32 programs, and score P/R/F1 against the
@@ -41,7 +43,10 @@ instead of hanging, each printing one line (or a few) when it ends:
    make_live_backend decodes) at B = 1, 8, 32, 128, 512 (the fixture's
    drawings tiled, bf16, bucket 1152): the table that sets "auto"'s batch
    band (decode.PERSISTENT_BATCHES), which must take the faster path at
-   every B; weight_quant (mxu, int8 weights and cross K/V) on the 64
+   every B; kernel 2's step route against its chain at STEP_BAND's buckets
+   and batches, the table behind persistent_decode.route_of's one-wave
+   rule (the route taken must be the faster, the two must agree);
+   weight_quant (mxu, int8 weights and cross K/V) on the 64
    drawings in bf16 and f32 against the JAX golden
    (fixtures/serve64_wq_jax_golden.npz); greedy_decode_nocache against
    the cached xla decode in f32 on the first 8 drawings (identical
@@ -351,6 +356,16 @@ MHA_F1_TOL = {"bf16": 0.01, "f32": 0.002}   # kernel path vs the JAX golden
 # and the drawings the no-cache decode runs
 AUTO_BATCHES = (1, 8, 32, 128, 512)
 AUTO_SLACK = 1.1
+# the port's bf16 bar (ROADMAP.md): token agreement of kernel 2's routes
+# with the plain version and with each other
+DECODE_AGREEMENT = 0.99
+# decode_options: the (bucket, batch) pairs at which kernel 2's two routes
+# are timed against each other for persistent_decode.route_of (bf16 must
+# take the faster within AUTO_SLACK): ep221's bucket over the batches, then
+# the side-face (256) and visible (512, 560) buckets
+STEP_BAND = tuple((1152, b) for b in (1, 8, 16, 32, 48, 64, 96, 128, 160,
+                                       192, 256, 512)) + (
+    (256, 24), (256, 32), (256, 64), (512, 64), (560, 64))
 NOCACHE_ROWS = 8
 BEAMS = 4
 # http: the bucket ladder of live backends, their batch, the client threads
@@ -553,11 +568,13 @@ FUSED_ROUTES = {"bf16": "cuda-mma (woc, w1, w2), cuda-simt-order (qkv, wo, "
 # them that run on the tensor cores: the bf16 GEMM of the fused layer, a
 # template with one function per route, prologue and epilogue, whose
 # tensor-core instances mangle as cluster_gemm_kernel<true, ...>
-ASYNC_KERNELS = {"persistent_greedy_decode": ("cross_attn_kernel",),
+ASYNC_KERNELS = {"persistent_greedy_decode": ("cross_attn_kernel",
+                                              "step_kernel"),
                  "cross_attn_decode": ("cross_attn_cluster_kernel",),
                  "fused_decoder_layer": ("fused_cross_split_kernel",
                                          "cluster_gemm_kernel")}
-DECODE_MMA_KERNELS = {"fused_decoder_layer": ("cluster_gemm_kernelILb1E",)}
+DECODE_MMA_KERNELS = {"fused_decoder_layer": ("cluster_gemm_kernelILb1E",),
+                      "persistent_greedy_decode": ("step_kernel",)}
 ASYNC_COPY = re.compile(r"\b(LDGSTS|UBLKCP|UTMALDG)\b")
 
 
@@ -802,7 +819,7 @@ def _leaves(tree):
 # the redesigned decode loop's kernels (csrc/decode.cu), for the breakdown
 DECODE_KERNELS = ("cluster_gemm_kernel", "self_attn_kernel",
                   "cross_attn_kernel", "final_norm_kernel", "pointer_kernel",
-                  "sample_kernel")
+                  "sample_kernel", "step_kernel")
 
 
 def decode_idle_share(fn):
@@ -830,7 +847,133 @@ def decode_idle_share(fn):
     return 1 - busy / wall, busy, wall
 
 
-def phase_decode(params, dims, batch, gt, bucket):
+def step_route(params, dims, batch, bucket, reps=3):
+    """The bf16 decode's route at this batch: its ms a step (the call, and
+    the graph's replays by CUDA events inside it), nodes a step, route and
+    plan, over `reps` calls after a warm-up; its tokens and steps against
+    the plain version's."""
+    from plankassembly_tpu_torch.decode import _pad_or_crop
+    from plankassembly_tpu_torch.models.model import encode
+    from plankassembly_tpu_torch.ops import persistent_decode as PD
+
+    inputs = _pad_or_crop(dict(batch), bucket, dims)
+    with torch.no_grad():
+        memory = encode(params, inputs, dims, compute_dtype=torch.bfloat16,
+                        flash=True)
+    mask = inputs["input_mask"]
+
+    def kern():
+        return PD.persistent_greedy_decode(params, memory, mask, dims,
+                                           compute_dtype=torch.bfloat16)
+
+    kern()
+    torch.cuda.synchronize()
+    ms, replay, steps = [], [], 0
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = kern()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        steps = out["num_steps"]
+        replay.append(PD.last_graph["replay_ms"])
+    g = dict(PD.last_graph)
+    plain = PD.greedy_decode_reference(params, memory, mask, dims,
+                                       compute_dtype=torch.bfloat16)
+    agree = (out["samples"] == plain["samples"]).float().mean().item()
+    row = {"B": memory.shape[0], "route": g["route"],
+           "nodes_per_step": g["nodes_per_step"],
+           "rows_per_cluster": g["rows_per_cluster"],
+           "cluster_size": g["cluster_size"], "clusters": g["clusters"],
+           "steps": steps, "ms": ms, "ms_per_step": [m / steps for m in ms],
+           "replay_ms_per_step": [r / steps for r in replay],
+           "agreement": agree, "plain_steps": plain["num_steps"]}
+    log(f"  route at B={row['B']}: {row['route']}, "
+        f"{row['nodes_per_step']:g} nodes a step, "
+        f"{row['rows_per_cluster']} rows a cluster of "
+        f"{row['cluster_size']} blocks, {row['clusters']} clusters; "
+        f"{steps} steps, ms a step (call) "
+        + ", ".join(f"{v:.4f}" for v in row["ms_per_step"])
+        + "; replays' ms a step "
+        + ", ".join(f"{v:.4f}" for v in row["replay_ms_per_step"])
+        + f"; token agreement with the plain version {agree:.4f}, steps "
+        f"{steps} / plain {plain['num_steps']}")
+    want = PD.route_of(torch.bfloat16,
+                       PD.step_plan(row["B"], memory.shape[1], dims))
+    check(row["route"] == want
+          and row["nodes_per_step"] <= (2 if want == "step" else 52),
+          f"decode at B={row['B']}: bf16 took {row['route']} with "
+          f"{row['nodes_per_step']} nodes a step (want {want})")
+    check(steps == plain["num_steps"] and agree >= DECODE_AGREEMENT,
+          f"decode at B={row['B']} ({row['route']}): agreement {agree} "
+          f"with the plain version, steps {steps} / {plain['num_steps']}")
+    return row
+
+
+def step_band_table(params, dims, packed):
+    """Kernel 2's two routes against each other at STEP_BAND: the
+    fixture's drawings tiled to B rows at the bucket, bf16, the step and
+    the chain forced (route_of patched), each persistent_greedy_decode call's
+    host-clock ms (least of 2 after a warm-up) and its replays' device ms,
+    over its steps. Checks that route_of takes the faster (within
+    AUTO_SLACK) and that the two routes agree on the tokens."""
+    from plankassembly_tpu_torch.decode import _pad_or_crop
+    from plankassembly_tpu_torch.models.model import encode
+    from plankassembly_tpu_torch.ops import persistent_decode as PD
+
+    rows = []
+    for bucket, B in STEP_BAND:
+        batch = _pad_or_crop(_stack(packed, [i % len(packed)
+                                             for i in range(B)]),
+                             bucket, dims)
+        with torch.no_grad():
+            memory = encode(params, batch, dims,
+                            compute_dtype=torch.bfloat16, flash=True)
+        ms, replay, outs = {}, {}, {}
+        plan = PD.step_plan(B, bucket, dims)
+        for route in ("step", "chain"):
+            with _patched(PD, route_of=lambda cd, plan, route=route: route):
+                def run(route=route):
+                    outs[route] = PD.persistent_greedy_decode(
+                        params, memory, batch["input_mask"], dims,
+                        compute_dtype=torch.bfloat16)
+                    replay[route] = PD.last_graph["replay_ms"]
+                ms[route] = host_ms(run)
+                check(PD.last_graph["route"] == route,
+                      f"step band: {route} forced, {PD.last_graph['route']} "
+                      f"ran")
+        steps = {r: o["num_steps"] for r, o in outs.items()}
+        agree = (outs["step"]["samples"] == outs["chain"]["samples"]) \
+            .float().mean().item()
+        pick = PD.route_of(torch.bfloat16, plan)
+        other = "chain" if pick == "step" else "step"
+        row = {"bucket": bucket, "B": B, "pick": pick, "steps": steps,
+               "plan": plan,
+               "agreement": agree,
+               "ms_per_step": {r: ms[r] / steps[r] for r in ms},
+               "replay_ms_per_step": {r: replay[r] / steps[r]
+                                      for r in replay}}
+        rows.append(row)
+        log(f"decode_options step band: bucket {bucket} B={B}, "
+            f"{steps['step']}/{steps['chain']} steps: ms a step (call) step "
+            f"{row['ms_per_step']['step']:.4f} chain "
+            f"{row['ms_per_step']['chain']:.4f}, replays step "
+            f"{row['replay_ms_per_step']['step']:.4f} chain "
+            f"{row['replay_ms_per_step']['chain']:.4f}; agreement "
+            f"{agree:.4f}; the step's plan {plan}: route_of takes {pick}")
+        check(ms[pick] / steps[pick]
+              <= AUTO_SLACK * ms[other] / steps[other],
+              f"step band: route_of takes {pick} at bucket {bucket} B={B}, "
+              f"{ms[pick] / steps[pick]:.4f} ms a step against {other}'s "
+              f"{ms[other] / steps[other]:.4f}: the one-wave rule "
+              f"disagrees with the card")
+        check(agree >= DECODE_AGREEMENT,
+              f"step band: the routes agree on {agree} of the tokens at "
+              f"bucket {bucket} B={B}")
+        del memory
+    return rows
+
+
+def phase_decode(params, dims, batch, gt, bucket, full=None):
     from plankassembly_tpu_torch.decode import _pad_or_crop
     from plankassembly_tpu_torch.metrics import batch_scores
     from plankassembly_tpu_torch.models.model import encode
@@ -995,7 +1138,10 @@ def phase_decode(params, dims, batch, gt, bucket):
     check(k_rag["num_steps"] == S, "decode on the ragged mask: steps")
     check(nopdl_same, "decode: samples differ without programmatic "
           "dependent launch")
-    return {"err": hid_err, "ms": k_ms, "plain_ms": p_ms,
+    routes = [step_route(params, dims, batch, bucket)]
+    if full is not None:
+        routes.append(step_route(params, dims, full, bucket))
+    return {"routes": routes, "err": hid_err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "steps": k_steps,
             "ms_per_step": k_ms / k_steps, "prepare_ms": prep_ms,
             "replay_ms": graph["replay_ms"],
@@ -1226,7 +1372,8 @@ def phase_decode_options(params, dims, packed, gt, bucket):
         greedy_decode, greedy_decode_nocache,
     )
 
-    res = {"band": auto_band_table(params, dims, packed, bucket)}
+    res = {"band": auto_band_table(params, dims, packed, bucket),
+           "step_band": step_band_table(params, dims, packed)}
     golden = np.load(os.path.join(FIXTURES, "serve64_wq_jax_golden.npz"))
     check(int(golden["bucket"]) == bucket, "weight_quant golden bucket")
     batch = _stack(packed, range(len(packed)))
@@ -5252,12 +5399,20 @@ def summarize(res):
         d = res["decode"]
         note("decode", f"agreement {d['token_agreement']:.4f}, {d['ms']:.2f} "
              f"ms for {d['steps']} steps ({d['ms_per_step']:.3f} ms/step), "
-             f"idle share {d['idle_share']:.3f}")
+             f"idle share {d['idle_share']:.3f}; " + ", ".join(
+                 f"B={r['B']} {r['route']} {r['nodes_per_step']:g} nodes "
+                 f"{min(r['replay_ms_per_step']):.4f} ms/step (replays)"
+                 for r in d["routes"]))
     if "decode_options" in res:
         d = res["decode_options"]
         note("decode_options", "ms/step persistent/mxu " + ", ".join(
             f"B={r['B']} {r['persistent_ms_per_step']:.3f}/"
             f"{r['mxu_ms_per_step']:.3f}" for r in d["band"]))
+        note("decode_options", "ms/step step/chain (replays) " + ", ".join(
+            f"{r['bucket']}xB={r['B']} "
+            f"{r['replay_ms_per_step']['step']:.3f}/"
+            f"{r['replay_ms_per_step']['chain']:.3f} {r['pick']}"
+            for r in d["step_band"]))
         note("decode_options", "weight_quant " + ", ".join(
             f"{n} F1 {d['wq_' + n]['f1']:.6f} (golden "
             f"{d['wq_' + n]['golden_f1']:.6f}) identical "
@@ -5397,8 +5552,10 @@ def main() -> int:
                 res["flash"] = phase_flash(main_lengths, bucket)
         if "decode" in phases:
             with Phase("decode"):
+                full = {k: torch.from_numpy(np.stack([p[k] for p in packed]))
+                        .to(DEVICE) for k in packed[0]}
                 res["decode"] = phase_decode(params, dims, req, gt[last],
-                                             bucket)
+                                             bucket, full=full)
         if "serve" in phases:
             with Phase("serve"):
                 res["serve"] = phase_serve(params, cfg, dims, packed, gt,

@@ -115,6 +115,8 @@ def _declare(lib):
     lib.plank_flash_attention.restype = I32
     lib.plank_decode_run.argtypes = [P, I64, P, P]  # args struct, steps a
     lib.plank_decode_run.restype = I32             # graph, stream, stats
+    lib.plank_decode_step_plan.argtypes = [P, P]    # args struct, plan
+    lib.plank_decode_step_plan.restype = I32
     lib.plank_flash_train_fwd.argtypes = [
         P, P, P, P, P, P, P,                # q, k, v, kv_len, seed, out,
                                             # stats

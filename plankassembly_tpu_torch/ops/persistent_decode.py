@@ -4,14 +4,17 @@ persistent_greedy_decode`, and its plain PyTorch version.
 
 The TPU kernel runs all S steps in one launch. Here one ctypes call into
 `csrc/decode.cu` runs the whole loop: it captures `CHECK_EVERY`
-consecutive steps of simple kernels (about 8 a layer) once as a CUDA
-graph and replays it until the device's halt flag is set (see the note
-there); no kernel waits on a block outside its own cluster. The step
-number lives in device memory, so every replay continues where the last
-one stopped. Early exit is that halt flag, which every kernel checks and
-the host reads after each replay while the next one runs, so the result
-(tokens, trailing tokens of rows that finished earlier, `num_steps`)
-equals the JAX while_loop's.
+consecutive steps once as a CUDA graph and replays it until the device's
+halt flag is set (see the note there); no kernel waits on a block outside
+its own cluster. Two routes, chosen by `route_of`: in bf16, where the
+card holds every cluster of the step's plan at once, each step is one
+launch (`step`: a thread-block cluster runs a group of rows through the
+whole step); otherwise a chain of simple kernels (`chain`: about 8 a
+layer), its bf16 products on the tensor cores. The step number lives in device memory, so
+every replay continues where the last one stopped. Early exit is that
+halt flag, which every kernel checks and the host reads after each replay
+while the next one runs, so the result (tokens, trailing tokens of rows
+that finished earlier, `num_steps`) equals the JAX while_loop's.
 
 Semantics (both versions) are those of
 ``decode.greedy_decode(kv_quant=True, self_quant=False, cross_impl="xla")``
@@ -36,29 +39,36 @@ from plankassembly_tpu_torch.ops import _build
 from plankassembly_tpu_torch.ops.cross_decode import quantize_rows
 from plankassembly_tpu_torch.utils import profiling
 
-# calls that ran the CUDA decode (one per decode of a batch)
+# calls that ran the CUDA decode (one per decode of a batch), and by route
 launches = 0
+launches_by_route = {"step": 0, "chain": 0}
 # steps in the captured graph: between two host reads of the halt flag
 CHECK_EVERY = 8
-# bf16 products run on the tensor cores (mma.sync); True runs them in the
-# SIMT GEMM's order of f32 sums instead, as every f32 product runs (for
-# comparison)
+# bf16 products run on the tensor cores (mma.sync); True runs bf16
+# decodes through the chain with every product in the SIMT GEMM's order of
+# f32 sums instead, as every f32 decode runs (only to compare the orders)
 SIMT_ORDER = False
 # each kernel of the loop may start while the previous one ends
 # (programmatic dependent launch): its prologue and launch overlap the
 # previous kernel's tail
 PDL = True
 # the graph of the last CUDA call: capture and instantiate ms (host
-# clock, inside the call), kernels a step, replays, and the replays' ms
-# (CUDA events around them, inside the call)
+# clock, inside the call), kernels a step, replays, the replays' ms (CUDA
+# events around them, inside the call), the route and, on the step route,
+# its rows a cluster, cluster size, clusters and the clusters the card
+# holds at once
 last_graph: dict = {}
 # what `csrc/decode.cu::run` writes to its stats (int64): host clock
 # readings in ns on the system clock (`time.time_ns()`'s): run entered,
 # capture begun, capture ended, graph instantiated (the replays follow at
 # once), capture stream synchronised, everything released; then graph
-# nodes, replays launched, and the replays' device ns (CUDA events)
+# nodes, replays launched, the replays' device ns (CUDA events), the route
+# (1 step, 0 chain) and the step's plan (0 on the chain)
 _STATS = ("enter", "capture", "captured", "instantiated", "synced",
-          "released", "nodes", "replays", "replay_ns")
+          "released", "nodes", "replays", "replay_ns", "route", "rows",
+          "cluster", "clusters", "held")
+# the step's plan (`step_plan`)
+_PLAN = ("rows", "cluster", "clusters", "held")
 
 
 def _layers(tree, L):
@@ -170,15 +180,66 @@ def greedy_decode_reference(params, memory, memory_mask, dims: ModelDims, *,
 # ---------------------------------------------------------------------------
 
 _INT_FIELDS = ("B", "S", "D", "H", "kvH", "Dh", "F", "V", "L", "Li", "dof",
-               "end_token", "is_bf16", "early_exit", "simt_order", "pdl")
+               "end_token", "is_bf16", "early_exit", "simt_order", "step",
+               "pdl")
 _PTR_FIELDS = ("wqkv", "bqkv", "wo", "bo", "cwq", "cbq", "cwo", "cbo", "w1",
                "b1", "w2", "b2", "ln", "final_ln", "head_w", "head_b",
                "emb_value", "emb_coord", "emb_pos", "struct_mask", "ck", "cv",
                "ck_scale", "cv_scale", "mem_mask", "k_cache", "v_cache",
                "h_cache", "x", "hf", "q", "att", "q2", "z", "head_out", "ptr",
                "output", "attach", "done", "halt", "num_steps", "counter")
-# the head's columns are padded to the cluster GEMM's tile width
+# the chain's head columns are padded to the cluster GEMM's tile width
 _HEAD_TILE = 32
+# the chain's scratch between its kernels; the step keeps it in shared
+# memory
+_CHAIN_SCRATCH = ("x", "hf", "q", "att", "q2", "z", "head_out", "ptr")
+
+
+def route_of(compute_dtype, plan) -> str:
+    """The CUDA decode's route: "step" (one launch a step, products on
+    mma.sync) for bf16 where the step's `plan` (`step_plan`; None: the step
+    cannot run the shapes) runs every cluster in one wave, else "chain" (52
+    kernels a step: bf16 products on mma.sync, or in the SIMT GEMM's order
+    with `SIMT_ORDER`, as every f32 product). The step's time grows with
+    its rows a cluster and, past one wave, with the waves; the chain's
+    kernels spread a large batch over every SM (PERF.md §6: on an H100 the
+    step is the faster up to B=128, the chain from B=160)."""
+    if (compute_dtype == torch.bfloat16 and not SIMT_ORDER
+            and plan is not None and plan["clusters"] <= plan["held"]):
+        return "step"
+    return "chain"
+
+
+def _ints(B, Li, dims: ModelDims, cd, early_exit, step):
+    """The ints of DecodeArgs."""
+    return dict(B=B, S=dims.max_output_length, D=dims.num_model,
+                H=dims.num_head, kvH=dims.kv_heads, Dh=dims.head_dim,
+                F=dims.num_feedforward, V=dims.vocab_size,
+                L=dims.num_decoder_layers, Li=Li, dof=dims.num_output_dof,
+                end_token=dims.end, is_bf16=int(cd == torch.bfloat16),
+                early_exit=int(early_exit), simt_order=int(SIMT_ORDER),
+                step=int(step), pdl=int(PDL))
+
+
+def step_plan(B, Li, dims: ModelDims):
+    """The step's plan for a bf16 decode of B rows over Li keys on the
+    current CUDA device (`csrc/decode.cu::plank_decode_step_plan`): rows a
+    cluster, cluster size, clusters and the clusters the card holds at
+    once; None where the step cannot run these shapes."""
+    args = DecodeArgs(**_ints(B, Li, dims, torch.bfloat16, True, True),
+                      **{n: 0 for n in _PTR_FIELDS})
+    out = (ctypes.c_int64 * len(_PLAN))()
+    if _build.library().plank_decode_step_plan(ctypes.byref(args), out):
+        return None
+    return dict(zip(_PLAN, out))
+
+
+def _strips(w, width):
+    """(..., K, N) -> (..., N / width, K, width): strips of `width`
+    columns over every row, strip-major, as the step kernel streams a
+    block's columns in one bulk copy."""
+    *lead, K, N = w.shape
+    return w.reshape(*lead, K, N // width, width).transpose(-3, -2)
 
 
 class DecodeArgs(ctypes.Structure):
@@ -188,10 +249,12 @@ class DecodeArgs(ctypes.Structure):
                 + [(n, ctypes.c_void_p) for n in _PTR_FIELDS])
 
 
-def _prepare(params, memory, memory_mask, dims: ModelDims, cd, early_exit):
-    """Device tensors for the kernels: packed weights, int8 cross K/V,
-    state at step 0 and scratch. Returns (dict of tensors, ints for
-    DecodeArgs)."""
+def _prepare(params, memory, memory_mask, dims: ModelDims, cd, early_exit,
+             route=None):
+    """Device tensors for the kernels of `route` (None: `route_of`'s for
+    these shapes on this device): packed weights (row-major for the chain,
+    in strips for the step), int8 cross K/V, state at step 0 and the
+    chain's scratch. Returns (dict of tensors, ints for DecodeArgs)."""
     from plankassembly_tpu_torch.decode import (
         precompute_cross_kv,
     )
@@ -200,8 +263,7 @@ def _prepare(params, memory, memory_mask, dims: ModelDims, cd, early_exit):
     dev = memory.device
     f32 = torch.float32
     B, Li = memory.shape[0], memory.shape[1]
-    S, D, H, Dh = (dims.max_output_length, dims.num_model, dims.num_head,
-                   dims.head_dim)
+    S, D, Dh = dims.max_output_length, dims.num_model, dims.head_dim
     kvH, L, F, V = (dims.kv_heads, dims.num_decoder_layers,
                     dims.num_feedforward, dims.vocab_size)
     Dkv, NH = kvH * Dh, V + D + 1
@@ -212,20 +274,34 @@ def _prepare(params, memory, memory_mask, dims: ModelDims, cd, early_exit):
     ck_q, ck_s = quantize_rows(cross_k, (2, 4))
     cv_q, cv_s = quantize_rows(cross_v, (2, 4))
 
+    if route is None:
+        route = route_of(cd, step_plan(B, Li, dims)
+                         if dev.type == "cuda" and cd == torch.bfloat16
+                         else None)
+    step = route == "step"
+
     def c(t, dtype):
         return t.to(device=dev, dtype=dtype).contiguous()
 
+    def w(t):  # a product's weights, (L, K, N)
+        t = t.to(device=dev, dtype=cd)
+        return _strips(t, 8).contiguous() if step else t.contiguous()
+
     head_w = torch.cat([heads["vocab"]["w"], heads["pointer"]["w"],
-                        heads["switch"]["w"]], dim=1)
-    head_w = torch.nn.functional.pad(head_w, (0, -NH % _HEAD_TILE))
+                        heads["switch"]["w"]], dim=1).to(device=dev,
+                                                          dtype=f32)
+    if step:
+        head_w = _strips(torch.nn.functional.pad(head_w, (0, -NH % 4)), 4)
+    else:
+        head_w = torch.nn.functional.pad(head_w, (0, -NH % _HEAD_TILE))
     ts = {
-        "wqkv": c(torch.cat([sa["wq"], sa["wk"], sa["wv"]], dim=2), cd),
+        "wqkv": w(torch.cat([sa["wq"], sa["wk"], sa["wv"]], dim=2)),
         "bqkv": c(torch.cat([sa["bq"], sa["bk"], sa["bv"]], dim=1), cd),
-        "wo": c(sa["wo"], cd), "bo": c(sa["bo"], cd),
-        "cwq": c(ca["wq"], cd), "cbq": c(ca["bq"], cd),
-        "cwo": c(ca["wo"], cd), "cbo": c(ca["bo"], cd),
-        "w1": c(ffn["w1"], cd), "b1": c(ffn["b1"], cd),
-        "w2": c(ffn["w2"], cd), "b2": c(ffn["b2"], cd),
+        "wo": w(sa["wo"]), "bo": c(sa["bo"], cd),
+        "cwq": w(ca["wq"]), "cbq": c(ca["bq"], cd),
+        "cwo": w(ca["wo"]), "cbo": c(ca["bo"], cd),
+        "w1": w(ffn["w1"]), "b1": c(ffn["b1"], cd),
+        "w2": w(ffn["w2"]), "b2": c(ffn["b2"], cd),
         "ln": c(torch.stack([dec[n][k] for n in ("norm1", "norm2", "norm3")
                              for k in ("scale", "bias")], dim=1), f32),
         "final_ln": c(torch.stack([dec["final_norm"]["scale"],
@@ -252,14 +328,6 @@ def _prepare(params, memory, memory_mask, dims: ModelDims, cd, early_exit):
         "k_cache": torch.zeros((L, B, S, Dkv), dtype=cd, device=dev),
         "v_cache": torch.zeros((L, B, S, Dkv), dtype=cd, device=dev),
         "h_cache": torch.zeros((B, S, D), dtype=f32, device=dev),
-        "x": torch.zeros((B, D), dtype=f32, device=dev),  # step 0's input
-        "hf": torch.empty((B, D), dtype=f32, device=dev),
-        "q": torch.empty((B, D), dtype=cd, device=dev),
-        "att": torch.empty((B, D), dtype=cd, device=dev),
-        "q2": torch.empty((B, D), dtype=cd, device=dev),
-        "z": torch.empty((B, F), dtype=cd, device=dev),
-        "head_out": torch.empty((B, NH), dtype=f32, device=dev),
-        "ptr": torch.empty((B, S), dtype=f32, device=dev),
         "output": torch.zeros((B, S), dtype=torch.int32, device=dev),
         "attach": torch.full((B, S), -1, dtype=torch.int32, device=dev),
         "done": torch.zeros((B,), dtype=torch.int32, device=dev),
@@ -267,11 +335,18 @@ def _prepare(params, memory, memory_mask, dims: ModelDims, cd, early_exit):
         "num_steps": torch.zeros((1,), dtype=torch.int32, device=dev),
         "counter": torch.zeros((1,), dtype=torch.int32, device=dev),
     })
-    ints = dict(B=B, S=S, D=D, H=H, kvH=kvH, Dh=Dh, F=F, V=V, L=L, Li=Li,
-                dof=dims.num_output_dof, end_token=dims.end,
-                is_bf16=int(cd == torch.bfloat16), early_exit=int(early_exit),
-                simt_order=int(SIMT_ORDER), pdl=int(PDL))
-    return ts, ints
+    if not step:
+        ts.update({
+            "x": torch.zeros((B, D), dtype=f32, device=dev),  # step 0's input
+            "hf": torch.empty((B, D), dtype=f32, device=dev),
+            "q": torch.empty((B, D), dtype=cd, device=dev),
+            "att": torch.empty((B, D), dtype=cd, device=dev),
+            "q2": torch.empty((B, D), dtype=cd, device=dev),
+            "z": torch.empty((B, F), dtype=cd, device=dev),
+            "head_out": torch.empty((B, NH), dtype=f32, device=dev),
+            "ptr": torch.empty((B, S), dtype=f32, device=dev),
+        })
+    return ts, _ints(B, Li, dims, cd, early_exit, step)
 
 
 def _check_inputs(memory, memory_mask, dims: ModelDims, cd):
@@ -310,9 +385,8 @@ def persistent_greedy_decode(params, memory, memory_mask, dims: ModelDims, *,
 
     On a CUDA tensor: one call of `csrc/decode.cu`'s loop (a graph of
     `CHECK_EVERY` steps captured for this call and replayed until every row
-    is done), with the bf16 products on the tensor cores unless
-    `SIMT_ORDER`; a failed build, capture or launch raises. On a CPU tensor:
-    `greedy_decode_reference`."""
+    is done) on the route `route_of(compute_dtype, batch)`; a failed build,
+    capture or launch raises. On a CPU tensor: `greedy_decode_reference`."""
     global launches
     _check_inputs(memory, memory_mask, dims, compute_dtype)
     if memory.device.type == "cpu":
@@ -325,7 +399,8 @@ def persistent_greedy_decode(params, memory, memory_mask, dims: ModelDims, *,
     with profiling.annotate("persistent.prepare"):
         ts, ints = _prepare(params, memory, memory_mask, dims,
                             compute_dtype, early_exit)
-    args = DecodeArgs(**ints, **{n: ts[n].data_ptr() for n in _PTR_FIELDS})
+    args = DecodeArgs(**ints, **{n: ts[n].data_ptr() if n in ts else 0
+                                 for n in _PTR_FIELDS})
     lib = _build.library()
     stream = _build.stream_handle(memory.device)
     raw = (ctypes.c_int64 * len(_STATS))()
@@ -333,17 +408,22 @@ def persistent_greedy_decode(params, memory, memory_mask, dims: ModelDims, *,
     _build.check(lib.plank_decode_run(ctypes.byref(args), CHECK_EVERY,
                                       stream, raw), "plank_decode_run")
     st = dict(zip(_STATS, raw))
+    route = "step" if st["route"] else "chain"
+    launches_by_route[route] += 1
     num_steps = int(ts["num_steps"].item())
     last_graph.clear()
     last_graph.update(capture_ms=(st["captured"] - st["capture"]) / 1e6,
                       instantiate_ms=(st["instantiated"]
                                       - st["captured"]) / 1e6,
                       nodes_per_step=st["nodes"] / CHECK_EVERY,
-                      replays=st["replays"], replay_ms=st["replay_ns"] / 1e6)
+                      replays=st["replays"], replay_ms=st["replay_ns"] / 1e6,
+                      route=route, rows_per_cluster=st["rows"],
+                      cluster_size=st["cluster"], clusters=st["clusters"],
+                      held=st["held"])
     # the call's phases as spans, children of the span open here
     profiling.record("persistent.graph_build", st["enter"],
                      st["instantiated"],
-                     nodes_per_step=last_graph["nodes_per_step"])
+                     nodes_per_step=last_graph["nodes_per_step"], route=route)
     profiling.record("persistent.replay", st["instantiated"],
                      st["synced"], replays=st["replays"], steps=num_steps,
                      device_ms=last_graph["replay_ms"])

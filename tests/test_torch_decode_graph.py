@@ -276,34 +276,118 @@ def _tiny(kv=1):
         ModelDims.from_config(cfg)
 
 
-@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-def test_prepare_holds_only_what_the_kernels_read(cd):
+# a step plan that runs in one wave: 13 clusters of 5 rows, all held
+ONE_WAVE = {"rows": 5, "cluster": 8, "clusters": 13, "held": 13}
+
+
+@pytest.mark.parametrize("cd,route", [
+    (torch.float32, "chain"), (torch.bfloat16, "step"),
+    (torch.bfloat16, "chain")], ids=["f32", "bf16", "bf16-chain"])
+def test_prepare_holds_only_what_the_kernels_read(cd, route):
     params, dims = _tiny()
     B, Li = 3, 20
     rng = np.random.default_rng(0)
     memory = torch.from_numpy(rng.standard_normal(
         (B, Li, dims.num_model)).astype(np.float32))
     mask = torch.from_numpy(rng.random((B, Li)) < 0.3)
-    ts, ints = PD._prepare(params, memory, mask, dims, cd, early_exit=True)
-    # every pointer of DecodeArgs, and nothing else: the split-K
-    # workspace, the cross-attention parts and their counters are gone
-    assert set(ts) == set(PD._PTR_FIELDS)
+    ts, ints = PD._prepare(params, memory, mask, dims, cd, early_exit=True,
+                           route=route)
+    step = route == "step"
+    # every pointer of DecodeArgs the route reads, and nothing else: the
+    # split-K workspace, the cross-attention parts and their counters are
+    # gone, and the step keeps the chain's scratch in shared memory
+    want = set(PD._PTR_FIELDS) - (set(PD._CHAIN_SCRATCH) if step else set())
+    assert set(ts) == want
     for gone in ("gemm_ws", "gemm_counters", "attn_ws", "attn_counters"):
         assert gone not in ts
     assert set(ints) == set(PD._INT_FIELDS)
     args = PD.DecodeArgs(**ints, **{n: 0 for n in PD._PTR_FIELDS})
-    # bf16 products on the tensor cores unless asked for the SIMT order
-    assert args.simt_order == 0 and args.is_bf16 == (cd == torch.bfloat16)
-    # the head's columns padded to the cluster GEMM's tile, the pad zero
+    # the route's flag; bf16 products on the tensor cores unless asked for
+    # the SIMT order
+    assert args.step == step and args.is_bf16 == (cd == torch.bfloat16)
+    assert args.simt_order == 0
+    # the head's columns padded (to the chain's GEMM tile, or to whole
+    # strips of 4 for the step), the pad zero
     NH = dims.vocab_size + dims.num_model + 1
-    assert ts["head_w"].shape == (dims.num_model, -(-NH // 32) * 32)
-    assert not ts["head_w"][:, NH:].any()
-    # the state at step 0: zero input, counters and flags
+    if step:
+        assert ts["head_w"].shape == (-(-NH // 4), dims.num_model, 4)
+        flat = ts["head_w"].permute(1, 0, 2).reshape(dims.num_model, -1)
+    else:
+        assert ts["head_w"].shape == (dims.num_model, -(-NH // 32) * 32)
+        flat = ts["head_w"]
+    assert not flat[:, NH:].any()
+    # the state at step 0: zero input (the chain's), counters and flags
     for n in ("x", "done", "halt", "num_steps", "counter", "output"):
-        assert not ts[n].any(), n
+        assert n not in ts or not ts[n].any(), n
     assert (ts["attach"] == -1).all()
-    assert ts["q"].dtype == ts["k_cache"].dtype == cd
+    assert ts["k_cache"].dtype == cd
+    assert step or ts["q"].dtype == cd
+
+
+@pytest.mark.parametrize("cd,simt_order,route", [
+    (torch.bfloat16, False, "step"), (torch.float32, False, "chain"),
+    (torch.bfloat16, True, "chain"), (torch.float32, True, "chain")])
+def test_route_bf16_takes_the_step_f32_and_simt_order_the_chain(
+        cd, simt_order, route, monkeypatch):
+    monkeypatch.setattr(PD, "SIMT_ORDER", simt_order)
+    assert PD.route_of(cd, ONE_WAVE) == route
+    params, dims = _tiny()
+    memory = torch.zeros(2, 5, dims.num_model)
+    mask = torch.zeros(2, 5, dtype=torch.bool)
+    _, ints = PD._prepare(params, memory, mask, dims, cd, early_exit=False,
+                          route=route)
+    assert ints["step"] == (route == "step")
+    assert ints["simt_order"] == simt_order
+
+
+@pytest.mark.parametrize("clusters,held,route", [
+    (1, 13, "step"), (5, 13, "step"), (13, 13, "step"), (14, 13, "chain"),
+    (52, 13, "chain"), (1, 1, "step"), (2, 1, "chain"), (None, 13, "chain")])
+def test_bf16_takes_the_step_only_in_one_wave(clusters, held, route):
+    """The step's plan chooses bf16's route: the step where the card holds
+    every cluster at once, the chain on the tensor cores past one wave or
+    where the step has no plan (None); f32 always the chain."""
+    plan = None if clusters is None else dict(ONE_WAVE, clusters=clusters,
+                                              held=held)
+    assert PD.route_of(torch.bfloat16, plan) == route
+    assert PD.route_of(torch.float32, plan) == "chain"
+
+
+def test_prepare_off_cuda_takes_the_chain_without_a_plan(monkeypatch):
+    """On a CPU tensor `_prepare` asks the library for no plan: the
+    chain's layout."""
+    def no_library(*args):
+        raise AssertionError("step_plan called off CUDA")
+    monkeypatch.setattr(PD, "step_plan", no_library)
+    params, dims = _tiny()
+    memory = torch.zeros(2, 5, dims.num_model)
+    mask = torch.zeros(2, 5, dtype=torch.bool)
+    ts, ints = PD._prepare(params, memory, mask, dims, torch.bfloat16,
+                           early_exit=False)
+    assert ints["step"] == 0 and "x" in ts
+
+
+@pytest.mark.parametrize("name,width", [("wqkv", 8), ("wo", 8), ("w1", 8),
+                                        ("w2", 8), ("head_w", 4)])
+def test_step_weights_are_strips_of_the_products(name, width):
+    """Strip s of the step's layout, row k, holds columns [width s, width
+    (s + 1)) of row k of the product's weights (x @ W), as the chain's
+    row-major copy has them."""
+    params, dims = _tiny()
+    memory = torch.zeros(2, 5, dims.num_model)
+    mask = torch.zeros(2, 5, dtype=torch.bool)
+    chain, _ = PD._prepare(params, memory, mask, dims, torch.float32, True)
+    step, ints = PD._prepare(params, memory, mask, dims, torch.bfloat16,
+                             True, route="step")
+    assert ints["step"] == 1
+    got = step[name].float()
+    row_major = got.transpose(-3, -2).reshape(*got.shape[:-3],
+                                              got.shape[-2], -1)
+    want = chain[name].to(torch.bfloat16).float() if name != "head_w" \
+        else chain[name]
+    n = min(row_major.shape[-1], want.shape[-1])
+    assert torch.equal(row_major[..., :n], want[..., :n])
+    assert got.shape[-1] == width and got.is_contiguous()
 
 
 def test_cuda_dims_check_takes_the_flagship_and_refuses_the_rest():
