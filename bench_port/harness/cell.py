@@ -22,6 +22,7 @@ import time
 
 from bench_port.harness import check as C
 from bench_port.harness.trace import Trace
+from bench_port.metrics._setup import parts as setup_parts
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(HERE)
@@ -63,6 +64,8 @@ class Ctx:
         self.seed, self.seconds = args.seed, args.seconds
         self.trace = Trace(bool(args.trace), device)
         self.setup_s = None
+        self.marks = {}          # set-up's parts: seconds since start
+        self.routes = None       # the decode routes the run took
         self.window_s = None
         self.memory_peak = 0
         self.attempted = self.failed = 0
@@ -78,6 +81,11 @@ class Ctx:
         if self.device == "cuda":
             import torch
             torch.cuda.synchronize()
+
+    def mark(self, name: str):
+        """End of a part of set-up (`setup.*` metrics), device work done."""
+        self.sync()
+        self.marks[name] = time.monotonic() - self.t_start
 
     def mark_setup(self):
         self.sync()
@@ -205,6 +213,13 @@ def notes(ctx) -> list[str]:
     out = [f"window {ctx.window_s} s, setup {ctx.setup_s} s, "
            f"{ctx.attempted} attempted, {ctx.failed} failed, "
            f"{ctx.readings.get('tokens')} tokens judged"]
+    parts = setup_parts(ctx)
+    if parts:
+        out.append("setup parts: " + ", ".join(
+            f"{k} {v} s" for k, v in parts.items())
+            + f"; their sum {sum(parts.values())} s")
+    if ctx.routes is not None:
+        out.append(f"routes: {json.dumps(ctx.routes)}")
     w = ctx.trace.window
     if w is not None:
         out.append(f"trace: {w['device_events']} device activities, "

@@ -10,7 +10,10 @@ open on the thread that launched it: the CUDA runtime call with the
 same correlation id says which thread and when (a CUDA graph's kernels
 share the correlation id of its launch). A range's device time is
 the union of its activities' intervals, so it is the same whatever
-kernels implement the layer. Nothing is written to disk.
+kernels implement the layer. Each of the longest idle gaps is named by
+the innermost of the program's spans (`utils.profiling.spans()`) open
+at its middle, by the innermost range where no span is open, else
+"outside any range". Nothing is written to disk.
 """
 from __future__ import annotations
 
@@ -22,6 +25,15 @@ import time
 from bench_port.metrics import _intervals as I
 
 TOP = 10
+
+
+def _program_spans(lo, hi) -> list:
+    """The program's spans that lie within [lo, hi], on the clock of the
+    profiler's timestamps; none from a program that records no spans."""
+    from plankassembly_tpu_torch.utils import profiling
+    if not hasattr(profiling, "spans"):
+        return []
+    return profiling.spans(lo, hi)
 
 
 class Trace:
@@ -132,7 +144,8 @@ class Trace:
         for e, (a, b) in zip(device, spans):
             ops[e.name()] += (b - a) / 1e9
         gaps = sorted(I.gaps(spans, lo, hi), key=lambda g: g[0] - g[1])
-        idle = [[self._open_at((a + b) / 2), (b - a) / 1e9]
+        program = _program_spans(lo, hi)
+        idle = [[self._open_at((a + b) / 2, program), (b - a) / 1e9]
                 for a, b in gaps[:TOP]]
         return {"window_s": (hi - lo) / 1e9, "busy_s": busy_ns / 1e9,
                 "device_events": len(device), "unattributed": unattributed,
@@ -164,12 +177,17 @@ class Trace:
                     owners[x] = stack[-1]
         return owners
 
-    def _open_at(self, t) -> str:
-        """The innermost range open on any thread at time t."""
-        inside = [r for r in self.ranges if r["t0"] <= t <= r["t1"]]
+    def _open_at(self, t, program=()) -> str:
+        """The innermost of the program's spans (`program`) open on any
+        thread at time t; where none is, the innermost range."""
+        inside = [(s.t1 - s.t0, s.name) for s in program
+                  if s.t0 <= t <= s.t1]
+        if not inside:
+            inside = [(r["t1"] - r["t0"], r["name"]) for r in self.ranges
+                      if r["t0"] <= t <= r["t1"]]
         if not inside:
             return "outside any range"
-        return min(inside, key=lambda r: r["t1"] - r["t0"])["name"]
+        return min(inside)[1]
 
     def of(self, name: str) -> list[dict]:
         return [r for r in self.ranges if r["name"] == name]

@@ -34,6 +34,8 @@ def test_traced_line(tiny):
                             "device", "breakdown", "checks"]
     assert {"busy_s", "window_s"} <= set(result["device"])
     assert set(result["breakdown"]) == {"device_ops", "idle_gaps"}
-    # every per-layer metric of the cell reads the device's trace, and a
-    # reader that finds nothing to read (no card here) leaves it out
-    assert result["metrics"] == {}
+    # every per-layer metric of the cell but the set-up's parts (host
+    # clock) reads the device's trace, and a reader that finds nothing
+    # to read (no card here) leaves it out
+    assert set(result["metrics"]) == {"setup.load_s", "setup.pack_s",
+                                      "setup.warm_s"}
