@@ -64,7 +64,7 @@ def run(ctx) -> None:
     dims = ModelDims.from_config(cfg)
     ctx.check_program_config(cfg)
     ctx.mark("load")
-    bodies = P.requests()
+    bodies = P.requests(conf)
     order = P.balanced_order(len(bodies), tr["job"], ctx.seed)
     packed = [pack_info_dict(bodies[i], cfg) for i in order]
     real = [int((~p["input_mask"]).sum()) for p in packed]

@@ -1,9 +1,13 @@
-"""The drawing pool: 128 drawings (bench_port/data/serve64.json.gz and
-train64.json.gz, frozen copies of the program's fixtures; 42-260 lines
-each) from which every cell's requests are drawn by the seed.
+"""The drawing pool: 128 drawings from which every cell's requests are
+drawn by the seed. A configuration names its pool by the key "pool": the
+set `<pool>_serve64.json.gz` and `<pool>_train64.json.gz` under
+bench_port/data/. Without the key the pool is serve64.json.gz and
+train64.json.gz, frozen copies of the program's complete-lines fixtures
+(42-260 lines each); "visible" is the same 128 cabinets as visible lines
+only (`data/make_visible_pool.py`).
 
-A request is an info JSON as users send it to a complete-lines
-configuration: `lines` with their views and line types.
+A request is an info JSON as users send it to the configuration: `lines`
+with their views and line types.
 """
 from __future__ import annotations
 
@@ -18,19 +22,25 @@ DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 FILES = ("serve64.json.gz", "train64.json.gz")
 
 
-def drawings() -> list[dict]:
+def files(config: dict | None = None) -> list[str]:
+    """The pool's files, serve half first."""
+    pool = (config or {}).get("pool")
+    return [f"{pool}_{f}" if pool else f for f in FILES]
+
+
+def drawings(config: dict | None = None) -> list[dict]:
     out = []
-    for f in FILES:
+    for f in files(config):
         with gzip.open(os.path.join(DATA, f), "rt") as fh:
             out += json.load(fh)
     return out
 
 
-def requests() -> list[dict]:
+def requests(config: dict | None = None) -> list[dict]:
     """The pool as request bodies."""
     return [{"name": info["name"], "views": info["views"],
              "types": info["types"], "lines": info["lines"]}
-            for info in drawings()]
+            for info in drawings(config)]
 
 
 def balanced_order(n_pool: int, count: int, seed: int) -> np.ndarray:

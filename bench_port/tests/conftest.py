@@ -21,6 +21,7 @@ if ROOT not in sys.path:
 
 BASE_HPARAMS = {
     "gqa_complete_ep221": "checkpoints/gqa_complete_ep221.hparams.yaml",
+    "gqa_visible_ep79": "checkpoints/gqa_visible_ep79.hparams.yaml",
 }
 TINY = {"NUM_MODEL: 512": "NUM_MODEL: 32", "NUM_HEAD: 8": "NUM_HEAD: 4",
         "NUM_FEEDFORWARD: 1024": "NUM_FEEDFORWARD: 64",

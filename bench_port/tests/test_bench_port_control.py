@@ -10,7 +10,7 @@ from conftest import run_tiny
 
 
 CELLS = ["complete.offline_b64", "complete.offline_b512",
-         "complete.offline_b1"]
+         "complete.offline_b1", "visible.offline_b64"]
 
 
 @pytest.mark.parametrize("workload,seed,seconds", [
@@ -19,7 +19,8 @@ CELLS = ["complete.offline_b64", "complete.offline_b512",
     ("complete.offline_b64", 12345, 1.0),
     ("complete.offline_b512", 2 ** 31 + 3, 1.0),
     # one drawing a call: a window long enough for some tens of programs
-    ("complete.offline_b1", 2 ** 32 + 11, 8.0)])
+    ("complete.offline_b1", 2 ** 32 + 11, 8.0),
+    ("visible.offline_b64", 2 ** 31 + 13, 1.0)])
 def test_float8_control_is_not_correct(sharp, workload, seed, seconds):
     """The float8 reference in the program's place, judged against the
     cell's own limits, comes out not correct; the program correct."""

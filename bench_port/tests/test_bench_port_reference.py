@@ -3,6 +3,7 @@ width, and packs every pool drawing as the program does."""
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 from bench_port.harness import check as C
@@ -11,14 +12,14 @@ from bench_port.reference.model import Reference, load_npz
 from conftest import ROOT
 
 
-def test_packing_matches_program():
+@pytest.mark.parametrize("config", ["gqa_complete_ep221", "gqa_visible_ep79"])
+def test_packing_matches_program(config):
     from bench_port.harness.cell import load_json
     from plankassembly_tpu_torch.config import config_from_hparams_file
     from plankassembly_tpu_torch.serving import pack_info_dict
-    conf = load_json(ROOT, "bench_port", "configs",
-                     "gqa_complete_ep221.json")
+    conf = load_json(ROOT, "bench_port", "configs", config + ".json")
     cfg = config_from_hparams_file(f"{ROOT}/{conf['hparams']}")
-    for body in P.requests():
+    for body in P.requests(conf):
         got = pack_info_dict(body, cfg)
         want = C.pack_request(body, conf)
         assert set(got) == set(want)

@@ -38,7 +38,8 @@ def test_parts_add_up_to_setup_s():
 
 @pytest.mark.parametrize("workload", ["complete.offline_b64",
                                       "complete.offline_b512",
-                                      "complete.offline_b1"])
+                                      "complete.offline_b1",
+                                      "visible.offline_b64"])
 def test_run_marks_its_parts(tiny, workload):
     """The driver marks load and pack in order inside set-up, and the
     traced run reports the three parts, adding up to its `setup_s`."""
