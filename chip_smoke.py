@@ -997,7 +997,14 @@ def phase_decode(params, dims, batch, gt, bucket, full=None):
                                           compute_dtype=cd,
                                           early_exit=early_exit)
 
+    # the shape's first call builds its launch state (a miss): its graph's
+    # capture and instantiate ms; the later calls of the shape find it
+    PD._launch_states.clear()
+    hits0 = PD.graph_cache["hits"]
     k_out, p_out = kern(), plain()
+    built = dict(PD.last_graph)
+    check(not built["cached"], "decode: the shape's first call found a "
+          "launch state")
     torch.cuda.synchronize()
     ks, ps = k_out["samples"].cpu(), p_out["samples"].cpu()
     agree = (ks == ps).float().mean().item()
@@ -1056,7 +1063,10 @@ def phase_decode(params, dims, batch, gt, bucket, full=None):
 
     k_ms, k_steps = timed(kern, 3)
     graph = dict(PD.last_graph)  # of a call after the first: its replays'
-    # ms are CUDA events around them, inside the call
+    # ms are CUDA events around them
+    check(graph["cached"], "decode: a later call of the shape built its "
+          "launch state again")
+    hits = PD.graph_cache["hits"] - hits0
     prep_ms, _ = timed(lambda: {"num_steps": len(prepare())}, 3)
     p_ms, p_steps = timed(plain, 2)
     # launches after the previous kernel's end (no programmatic dependent
@@ -1102,8 +1112,11 @@ def phase_decode(params, dims, batch, gt, bucket, full=None):
         f"{bound_ms:.4f} ms ({bound_by})")
     log(f"  graph: {graph['nodes_per_step']:g} kernels a step, "
         f"{PD.CHECK_EVERY} steps a graph, {graph['replays']} replays, "
-        f"capture {graph['capture_ms']:.2f} ms, instantiate "
-        f"{graph['instantiate_ms']:.2f} ms; device idle share over the call "
+        f"capture {built['capture_ms']:.2f} ms, instantiate "
+        f"{built['instantiate_ms']:.2f} ms in the shape's first call, "
+        f"{hits} calls after it found their shape's launch state "
+        f"(graph_cache hits); "
+        f"device idle share over the call "
         f"{idle:.3f} (busy {busy_ms:.2f} of {wall_ms:.2f} ms, profiled); "
         f"every bf16 product in the SIMT order: {simt_ms:.2f} ms, token "
         f"agreement with the plain version {agree_simt:.4f}; without "
@@ -1150,8 +1163,9 @@ def phase_decode(params, dims, batch, gt, bucket, full=None):
             "token_agreement_ragged_changed_rows": agree_rag_rows,
             "hidden_err_ragged_changed_rows": rag_hid_rows,
             "kernels_per_step": graph["nodes_per_step"],
-            "capture_ms": graph["capture_ms"],
-            "instantiate_ms": graph["instantiate_ms"],
+            "capture_ms": built["capture_ms"],
+            "instantiate_ms": built["instantiate_ms"],
+            "graph_cache_hits": hits,
             "idle_share": idle,
             "kernel_breakdown": [{"kernel": n, "launches": c, "us": us}
                                  for n, c, us in step_rows],

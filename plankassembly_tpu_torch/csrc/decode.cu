@@ -1,10 +1,11 @@
-// The greedy decode loop, captured once per call as a CUDA graph of
-// CHECK_EVERY steps and replayed until every row is done. Two routes, which
-// the caller chooses (`step`, from plank_decode_step_plan): one kernel a
-// step (bf16, where the card holds every cluster of the step's plan at
-// once), or a chain of 52 kernels a step (f32; bf16 past one wave, its
-// products on mma.sync, or in the SIMT order with `simt_order`, which
-// exists only to compare the two orders).
+// The greedy decode loop, captured as a CUDA graph of CHECK_EVERY steps
+// on a shape's first call, kept with the shape's stream, events and plan
+// for its later calls (`State`), and replayed until every row is done.
+// Two routes, which the caller chooses (`step`, from
+// plank_decode_step_plan): one kernel a step (bf16, where the card holds
+// every cluster of the step's plan at once), or a chain of 52 kernels a
+// step (f32; bf16 past one wave, its products on mma.sync, or in the SIMT
+// order with `simt_order`, which exists only to compare the two orders).
 //
 // Replaces: plankassembly_tpu/ops/persistent_decode.py::
 // persistent_greedy_decode (Pallas kernel `_make_kernel`), which runs all
@@ -117,7 +118,10 @@
 // (layer, row, kv head): the K scale folds into the scores, the V scale
 // into the output.
 #include <algorithm>
+#include <atomic>
 #include <chrono>
+#include <new>
+#include <vector>
 
 #include "gemm_mma.cuh"
 
@@ -2084,6 +2088,39 @@ static int layout(const DecodeArgs& a, Plan& p) {
 // and staged spans as the ring holds. 0 or a CUDA error.
 constexpr int kClusterRanks = 8;
 
+// The clusters of kClusterRanks blocks at the most shared memory that the
+// current device holds at once. They depend on the device alone, so the
+// occupancy query (and the attribute it needs) runs once a device and
+// every plan after it, the route's and the launch's, reads the answer.
+static int held_clusters(int& held) {
+  constexpr int kDevices = 64;
+  static std::atomic<int> known[kDevices];  // 0: not asked yet
+  int dev = 0;
+  int e = (int)cudaGetDevice(&dev);
+  if (e) return e;
+  if (dev < kDevices && (held = known[dev].load()) > 0) return 0;
+  e = (int)cudaFuncSetAttribute(
+      step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  if (e) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kClusterRanks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemLimit;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kClusterRanks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  held = 0;
+  if ((e = (int)cudaOccupancyMaxActiveClusters(&held, step_kernel, &cfg)))
+    return e;
+  if (held <= 0) return cudaErrorInvalidConfiguration;
+  if (dev < kDevices) known[dev].store(held);
+  return 0;
+}
+
 static int plan(const DecodeArgs& a, Plan& p) {
   const int B = (int)a.B, G = (int)(a.H / a.kvH), D = (int)a.D,
             F = (int)a.F, S = (int)a.S, Dh = (int)a.Dh;
@@ -2098,28 +2135,9 @@ static int plan(const DecodeArgs& a, Plan& p) {
   spans_per_rank((int)a.Li, CL);
   p.parts = CL;
   const int min_stage = std::max(D, F) * kStrip;
-  // the clusters the card holds at once, at the most shared memory (per
-  // call, on the current device: cheap next to the graph's capture)
-  int e = (int)cudaFuncSetAttribute(
-      step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  const int e = held_clusters(p.held);
   if (e) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.C);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kSmemLimit;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int held = 0;
-  if ((e = (int)cudaOccupancyMaxActiveClusters(&held, step_kernel, &cfg)))
-    return e;
-  if (held <= 0) return cudaErrorInvalidConfiguration;
-  p.held = held;
-  for (p.R = std::min(kMaxRows, ceil_div(B, held)); p.R >= 1; --p.R) {
+  for (p.R = std::min(kMaxRows, ceil_div(B, p.held)); p.R >= 1; --p.R) {
     // the ring's chunks at the smallest stage taken, the most of any block
     p.stage = kMaxStage / 2;
     p.chunks = p.bias_cols = 0;
@@ -2167,6 +2185,21 @@ static int launch(const DecodeArgs& a, const Plan& p, cudaStream_t s) {
   cfg.attrs = attr;
   cfg.numAttrs = a.pdl ? 2 : 1;
   return (int)cudaLaunchKernelEx(&cfg, step_kernel, a, p);
+}
+
+// The arguments of `a` for a step kernel that `launch` put into the graph
+// `exec` was instantiated from (its node `node`): the launch's shape, with
+// the cluster and the programmatic edge the node keeps from its capture.
+static int set_args(cudaGraphExec_t exec, cudaGraphNode_t node,
+                    const DecodeArgs& a, const Plan& p) {
+  void* args[] = {const_cast<DecodeArgs*>(&a), const_cast<Plan*>(&p)};
+  cudaKernelNodeParams kp = {};
+  kp.func = reinterpret_cast<void*>(step_kernel);
+  kp.gridDim = dim3(p.clusters * p.C);
+  kp.blockDim = dim3(kThreads);
+  kp.sharedMemBytes = p.smem;
+  kp.kernelParams = args;
+  return (int)cudaGraphExecKernelNodeSetParams(exec, node, &kp);
 }
 
 }  // namespace step
@@ -2318,131 +2351,242 @@ static long long now_ns() {
       .count();
 }
 
-// The whole decode: capture `k` steps on a stream of its own (ordered
-// after `caller` by an event; the caller's stream may be the legacy
-// default stream, which cannot be captured), instantiate, and replay
-// until `halt`: with early exit the host reads the flag after replay r
-// while replay r + 1 runs, so at most one replay of empty launches
-// follows the last step. Ends with the work done and `caller` ordered
-// after it. stats (14 int64): the host clock (`now_ns`) where the call
-// enters, the capture begins, the capture ends, the graph is
-// instantiated (the replays' launches follow at once), the capture
-// stream's synchronise returns and everything is released; then the
-// graph's nodes, the replays launched, and the replays' device ns
-// (events on the capture stream around them: from the first replay's
-// start to the last one's end); the route (1 the step as one launch, 0
-// the chain), and the step's rows a cluster, cluster size, clusters and
-// the clusters the card holds at once (0 on the chain).
-template <typename T>
-static int run(const DecodeArgs& a, int k, cudaStream_t caller,
-               long long* stats) {
-  stats[0] = now_ns();
-  step::Plan sp = {};
-  int e = a.step ? step::plan(a, sp) : setup<T>(a);
-  stats[9] = a.step != 0;
-  stats[10] = sp.R;
-  stats[11] = sp.C;
-  stats[12] = sp.clusters;
-  stats[13] = sp.held;
-  if (e) return e;
+// A decode shape's launch state, which the caller keeps between the calls
+// of that shape (plank_decode_state_new / _free) and passes to one call at
+// a time: a stream of its own, its events and two pinned words for the
+// halt flag, the step's plan and the graph of `k` steps, instantiated. The
+// step route keeps the captured graph too, whose kernel nodes take each
+// call's arguments (`step::set_args`); the chain captures each call anew
+// and updates the instantiated graph from the capture.
+struct State {
   cudaStream_t cs = nullptr;
   cudaEvent_t ready = nullptr, started = nullptr, finished = nullptr,
               read[2] = {};
+  int* flags = nullptr;  // pinned: the halt flag after a replay
   cudaGraph_t graph = nullptr;
   cudaGraphExec_t exec = nullptr;
-  int* flags = nullptr;  // pinned: the halt flag after a replay
+  std::vector<cudaGraphNode_t> kernels;  // the step route's kernel nodes
+  step::Plan plan = {};
+  long long nodes = 0;
+  int k = 0;
+};
+
+// Everything `st` holds, its stream's work finished first (the pinned
+// flags may be a copy's target); `st` empty after.
+static void release(State& st) {
+  if (st.cs != nullptr) {
+    cudaStreamSynchronize(st.cs);
+    cudaStreamDestroy(st.cs);
+  }
+  if (st.exec != nullptr) cudaGraphExecDestroy(st.exec);
+  if (st.graph != nullptr) cudaGraphDestroy(st.graph);
+  for (cudaEvent_t ev : {st.ready, st.started, st.finished, st.read[0],
+                         st.read[1]})
+    if (ev != nullptr) cudaEventDestroy(ev);
+  if (st.flags != nullptr) cudaFreeHost(st.flags);
+  st = State();
+}
+
+static int create(State& st) {
+  int e;
+  if ((e = (int)cudaStreamCreateWithFlags(&st.cs, cudaStreamNonBlocking)) ||
+      (e = (int)cudaEventCreateWithFlags(&st.ready,
+                                         cudaEventDisableTiming)) ||
+      (e = (int)cudaEventCreate(&st.started)) ||
+      (e = (int)cudaEventCreate(&st.finished)) ||
+      (e = (int)cudaEventCreateWithFlags(&st.read[0],
+                                         cudaEventDisableTiming)) ||
+      (e = (int)cudaEventCreateWithFlags(&st.read[1],
+                                         cudaEventDisableTiming)))
+    return e;
+  return (int)cudaMallocHost(reinterpret_cast<void**>(&st.flags),
+                             2 * sizeof(int));
+}
+
+// `k` steps of `a` captured on `st.cs` into `graph`
+template <typename T>
+static int capture(const DecodeArgs& a, int k, State& st,
+                   cudaGraph_t& graph) {
+  int e = (int)cudaStreamBeginCapture(st.cs,
+                                      cudaStreamCaptureModeThreadLocal);
+  if (e) return e;
+  int le = 0;
+  for (int i = 0; i < k && le == 0; ++i)
+    le = a.step ? step::launch(a, st.plan, st.cs) : launch_step<T>(a, st.cs);
+  e = (int)cudaStreamEndCapture(st.cs, &graph);
+  return le ? le : e;
+}
+
+// The graph of `k` steps for this call in `st.exec`: on a shape's first
+// call captured and instantiated (the step route keeps the graph and its
+// kernel nodes); after it, on the step route, the kernel nodes take this
+// call's arguments, and on the chain a new capture updates the exec (or,
+// where the update is refused, replaces it).
+template <typename T>
+static int build(const DecodeArgs& a, int k, State& st, long long* stats) {
+  int e;
+  if (st.exec != nullptr && a.step) {
+    for (cudaGraphNode_t node : st.kernels)
+      if ((e = step::set_args(st.exec, node, a, st.plan))) return e;
+    stats[1] = stats[2] = stats[3] = now_ns();
+    return 0;
+  }
+  stats[1] = now_ns();
+  cudaGraph_t graph = nullptr;
+  if ((e = capture<T>(a, k, st, graph))) {
+    if (graph != nullptr) cudaGraphDestroy(graph);
+    return e;
+  }
+  stats[2] = now_ns();
+  size_t nodes = 0;
+  if ((e = (int)cudaGraphGetNodes(graph, nullptr, &nodes)) == 0) {
+    st.nodes = (long long)nodes;
+    if (st.exec != nullptr) {
+      cudaGraphExecUpdateResultInfo info;
+      if (cudaGraphExecUpdate(st.exec, graph, &info) != cudaSuccess) {
+        cudaGetLastError();  // refused: not an error of this call
+        cudaGraphExecDestroy(st.exec);
+        st.exec = nullptr;
+      }
+    }
+    if (st.exec == nullptr)
+      e = (int)cudaGraphInstantiate(&st.exec, graph, 0);
+  }
+  if (e == 0 && a.step) {
+    std::vector<cudaGraphNode_t> all(nodes);
+    e = (int)cudaGraphGetNodes(graph, all.data(), &nodes);
+    for (size_t i = 0; e == 0 && i < nodes; ++i) {
+      cudaGraphNodeType type = cudaGraphNodeTypeEmpty;
+      e = (int)cudaGraphNodeGetType(all[i], &type);
+      if (e == 0 && type == cudaGraphNodeTypeKernel)
+        st.kernels.push_back(all[i]);
+    }
+    st.graph = graph;
+  } else {
+    cudaGraphDestroy(graph);
+  }
+  stats[3] = now_ns();
+  return e;
+}
+
+// The whole decode on the launch state `st` (empty on a shape's first
+// call): the graph of `k` steps (`build`) on `st`'s stream, ordered after
+// `caller` by an event (the caller's stream may be the legacy default
+// stream, which cannot be captured), replayed until `halt`: with early
+// exit the host reads the flag after replay r while replay r + 1 runs, so
+// at most one replay of empty launches follows the last step. Returns
+// with `caller` ordered after the replays and nothing synchronised or
+// released; a failed call releases `st`. stats (14 int64): the host clock
+// (`now_ns`) where the call enters, the capture begins, the capture ends,
+// the graph is instantiated or takes its arguments (the replays' launches
+// follow at once), the replays are launched and the halt flag read, and
+// the call returns (the first three equal on a step route's later call);
+// then the graph's nodes, the replays launched, whether `st` came built
+// (1) or was built here (0), the route (1 the step as one launch, 0 the
+// chain), and the step's rows a cluster, cluster size, clusters and the
+// clusters the card holds at once (0 on the chain).
+template <typename T>
+static int run(const DecodeArgs& a, int k, cudaStream_t caller, State& st,
+               long long* stats) {
+  stats[0] = now_ns();
+  const bool built = st.exec != nullptr;
+  int e = 0;
+  if (built && st.k != k) e = cudaErrorInvalidValue;
+  else if (!built && a.step) e = step::plan(a, st.plan);
+  // the chain's kernels' shared memory for this shape, before its capture
+  else if (!a.step) e = setup<T>(a);
+  st.k = k;
+  stats[8] = built;
+  stats[9] = a.step != 0;
+  stats[10] = st.plan.R;
+  stats[11] = st.plan.C;
+  stats[12] = st.plan.clusters;
+  stats[13] = st.plan.held;
   do {
-    if ((e = (int)cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking)))
-      break;
-    if ((e = (int)cudaEventCreateWithFlags(&ready, cudaEventDisableTiming)) ||
-        (e = (int)cudaEventCreate(&started)) ||
-        (e = (int)cudaEventCreate(&finished)) ||
-        (e = (int)cudaEventCreateWithFlags(&read[0],
-                                           cudaEventDisableTiming)) ||
-        (e = (int)cudaEventCreateWithFlags(&read[1],
-                                           cudaEventDisableTiming)))
-      break;
-    if ((e = (int)cudaMallocHost(reinterpret_cast<void**>(&flags),
-                                 2 * sizeof(int))))
-      break;
-    if ((e = (int)cudaEventRecord(ready, caller)) ||
-        (e = (int)cudaStreamWaitEvent(cs, ready, 0)))
-      break;
-    stats[1] = now_ns();
-    if ((e = (int)cudaStreamBeginCapture(cs,
-                                         cudaStreamCaptureModeThreadLocal)))
-      break;
-    int le = 0;
-    for (int i = 0; i < k && le == 0; ++i)
-      le = a.step ? step::launch(a, sp, cs) : launch_step<T>(a, cs);
-    e = (int)cudaStreamEndCapture(cs, &graph);
-    if (le) e = le;
     if (e) break;
-    stats[2] = now_ns();
-    size_t nodes = 0;
-    if ((e = (int)cudaGraphGetNodes(graph, nullptr, &nodes))) break;
-    stats[6] = (long long)nodes;
-    if ((e = (int)cudaGraphInstantiate(&exec, graph, 0))) break;
-    stats[3] = now_ns();
+    if (st.cs == nullptr && (e = create(st))) break;
+    if ((e = (int)cudaEventRecord(st.ready, caller)) ||
+        (e = (int)cudaStreamWaitEvent(st.cs, st.ready, 0)))
+      break;
+    if ((e = build<T>(a, k, st, stats))) break;
+    stats[6] = st.nodes;
     const int replays = (int)((a.S + k - 1) / k);
-    if ((e = (int)cudaEventRecord(started, cs))) break;
+    if ((e = (int)cudaEventRecord(st.started, st.cs))) break;
     int r = 0;
     while (r < replays) {
-      if ((e = (int)cudaGraphLaunch(exec, cs))) break;
+      if ((e = (int)cudaGraphLaunch(st.exec, st.cs))) break;
       ++r;
       if (!a.early_exit || r == replays) continue;
-      if ((e = (int)cudaMemcpyAsync(&flags[r % 2], a.halt, sizeof(int),
-                                    cudaMemcpyDeviceToHost, cs)) ||
-          (e = (int)cudaEventRecord(read[r % 2], cs)))
+      if ((e = (int)cudaMemcpyAsync(&st.flags[r % 2], a.halt, sizeof(int),
+                                    cudaMemcpyDeviceToHost, st.cs)) ||
+          (e = (int)cudaEventRecord(st.read[r % 2], st.cs)))
         break;
       if (r >= 2) {  // the flag after replay r - 1, while replay r runs
-        if ((e = (int)cudaEventSynchronize(read[(r - 1) % 2]))) break;
-        if (flags[(r - 1) % 2]) break;
+        if ((e = (int)cudaEventSynchronize(st.read[(r - 1) % 2]))) break;
+        if (st.flags[(r - 1) % 2]) break;
       }
     }
     stats[7] = r;
+    stats[4] = now_ns();
     if (e) break;
-    if ((e = (int)cudaEventRecord(finished, cs)) ||
-        (e = (int)cudaStreamWaitEvent(caller, finished, 0)))
+    if ((e = (int)cudaEventRecord(st.finished, st.cs)) ||
+        (e = (int)cudaStreamWaitEvent(caller, st.finished, 0)))
       break;
   } while (false);
-  // release everything, the stream's work finished first (the pinned
-  // flags may be a copy's target)
-  if (cs != nullptr) {
-    const int se = (int)cudaStreamSynchronize(cs);
-    stats[4] = now_ns();
-    if (!e) e = se;
-    float replay_ms = 0.f;
-    if (!e) e = (int)cudaEventElapsedTime(&replay_ms, started, finished);
-    stats[8] = (long long)((double)replay_ms * 1e6);
-    cudaStreamDestroy(cs);
-  }
-  if (exec != nullptr) cudaGraphExecDestroy(exec);
-  if (graph != nullptr) cudaGraphDestroy(graph);
-  for (cudaEvent_t ev : {ready, started, finished, read[0], read[1]})
-    if (ev != nullptr) cudaEventDestroy(ev);
-  if (flags != nullptr) cudaFreeHost(flags);
+  if (e) release(st);
   stats[5] = now_ns();
   return e;
 }
 
 }  // namespace plank
 
+// A decode shape's launch state, empty: the caller passes it to every
+// plank_decode_run of that shape and frees it with plank_decode_state_free.
+// nullptr where the host is out of memory.
+extern "C" void* plank_decode_state_new() {
+  return new (std::nothrow) plank::State();
+}
+
+// Waits for the state's work and releases it.
+extern "C" void plank_decode_state_free(void* state) {
+  plank::State* st = static_cast<plank::State*>(state);
+  if (st == nullptr) return;
+  plank::release(*st);
+  delete st;
+}
+
 // The whole greedy decode of `args` (a plank::DecodeArgs), its state set
 // up by the caller (x, caches, output, done, halt, num_steps and counter
-// at their step-0 values), `graph_steps` steps a graph. Returns when the
-// decode is done, with `stream` ordered after it; stats (14 int64): the
-// call's phase boundaries on the system clock in ns, graph nodes,
-// replays, replays' device ns, the route and the step's plan (`run`). A
-// failed build of the graph or launch returns its CUDA error.
+// at their step-0 values), `graph_steps` steps a graph, on the launch
+// state `state` of its shapes (empty on their first call, built by it).
+// Returns once the host has seen the decode end, with `stream` ordered
+// after it; stats (14 int64): the call's phase boundaries on the system
+// clock in ns, graph nodes, replays, whether the state came built, the
+// route and the step's plan (`run`). A failed build of the graph or launch
+// returns its CUDA error and leaves `state` empty.
 extern "C" int plank_decode_run(const void* args, long long graph_steps,
-                                void* stream, long long* stats) {
+                                void* stream, void* state,
+                                long long* stats) {
   const plank::DecodeArgs& a = *static_cast<const plank::DecodeArgs*>(args);
+  plank::State& st = *static_cast<plank::State*>(state);
   if (!plank::valid(a) || graph_steps <= 0 || graph_steps > a.S)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return a.is_bf16 ? plank::run<__nv_bfloat16>(a, (int)graph_steps, s, stats)
-                   : plank::run<float>(a, (int)graph_steps, s, stats);
+  return a.is_bf16
+             ? plank::run<__nv_bfloat16>(a, (int)graph_steps, s, st, stats)
+             : plank::run<float>(a, (int)graph_steps, s, st, stats);
+}
+
+// The device ns of the last plank_decode_run on `state`, from its first
+// replay's start to its last one's end (events on the state's stream); the
+// caller asks once the call's work is done (after a synchronise of the
+// call's stream), else the CUDA error of the events' query.
+extern "C" int plank_decode_replay_ns(void* state, long long* ns) {
+  plank::State& st = *static_cast<plank::State*>(state);
+  float ms = 0.f;
+  const int e = (int)cudaEventElapsedTime(&ms, st.started, st.finished);
+  *ns = (long long)((double)ms * 1e6);
+  return e;
 }
 
 // The step's plan for a bf16 decode of `args`' shapes on the current

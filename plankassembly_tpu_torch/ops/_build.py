@@ -113,8 +113,14 @@ def _declare(lib):
         I64, I64, I64, I64, I64, I64,  # B, H, Hkv, Lq, Lk, Dh
         F32, I32, I32, P]              # sm_scale, causal, is_bf16, stream
     lib.plank_flash_attention.restype = I32
-    lib.plank_decode_run.argtypes = [P, I64, P, P]  # args struct, steps a
-    lib.plank_decode_run.restype = I32             # graph, stream, stats
+    lib.plank_decode_run.argtypes = [P, I64, P, P, P]  # args struct, steps
+    lib.plank_decode_run.restype = I32   # a graph, stream, launch state, stats
+    lib.plank_decode_state_new.argtypes = []
+    lib.plank_decode_state_new.restype = P
+    lib.plank_decode_state_free.argtypes = [P]
+    lib.plank_decode_state_free.restype = None
+    lib.plank_decode_replay_ns.argtypes = [P, P]   # launch state, ns
+    lib.plank_decode_replay_ns.restype = I32
     lib.plank_decode_step_plan.argtypes = [P, P]    # args struct, plan
     lib.plank_decode_step_plan.restype = I32
     lib.plank_flash_train_fwd.argtypes = [

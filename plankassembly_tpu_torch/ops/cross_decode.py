@@ -35,8 +35,9 @@ launches = 0
 def quantize_rows(x, dims):
     """Symmetric int8 quantization with one scale per leading row: the
     absmax over `dims` (kept as size-1 axes in the scale) / 127, at least
-    1e-8, taken in float32. Returns (int8 values, f32 scales)."""
-    xf = x.float()
+    1e-8, taken in float32. Returns (int8 values, f32 scales), both
+    contiguous whatever x's strides (one cast does both)."""
+    xf = x.to(torch.float32, memory_format=torch.contiguous_format)
     scale = torch.clamp(xf.abs().amax(dim=dims, keepdim=True) / 127.0,
                         min=1e-8)
     return torch.round(xf / scale).to(torch.int8), scale

@@ -3,14 +3,17 @@ that replaces the Pallas `plankassembly_tpu/ops/persistent_decode.py::
 persistent_greedy_decode`, and its plain PyTorch version.
 
 The TPU kernel runs all S steps in one launch. Here one ctypes call into
-`csrc/decode.cu` runs the whole loop: it captures `CHECK_EVERY`
-consecutive steps once as a CUDA graph and replays it until the device's
-halt flag is set (see the note there); no kernel waits on a block outside
-its own cluster. Two routes, chosen by `route_of`: in bf16, where the
-card holds every cluster of the step's plan at once, each step is one
-launch (`step`: a thread-block cluster runs a group of rows through the
-whole step); otherwise a chain of simple kernels (`chain`: about 8 a
-layer), its bf16 products on the tensor cores. The step number lives in device memory, so
+`csrc/decode.cu` runs the whole loop: it replays a CUDA graph of
+`CHECK_EVERY` consecutive steps until the device's halt flag is set (see
+the note there); no kernel waits on a block outside its own cluster. A
+decode shape's first call captures that graph; its later calls reuse it
+with the shape's stream, events and plan (`LaunchStates`), and every call
+of a params object reuses its packed weights (`PreparedWeights`). Two
+routes, chosen by `route_of`: in bf16, where the card holds every cluster
+of the step's plan at once, each step is one launch (`step`: a
+thread-block cluster runs a group of rows through the whole step);
+otherwise a chain of simple kernels (`chain`: about 8 a layer), its bf16
+products on the tensor cores. The step number lives in device memory, so
 every replay continues where the last one stopped. Early exit is that
 halt flag, which every kernel checks and the host reads after each replay
 while the next one runs, so the result (tokens, trailing tokens of rows
@@ -29,8 +32,11 @@ kernels or raises.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
+import threading
+import weakref
 
 import torch
 
@@ -42,6 +48,17 @@ from plankassembly_tpu_torch.utils import profiling
 # calls that ran the CUDA decode (one per decode of a batch), and by route
 launches = 0
 launches_by_route = {"step": 0, "chain": 0}
+# CUDA calls that found their shape's launch state built (hits) or built
+# it (misses); `_prepare` calls that found their packed weights, or packed
+# them
+graph_cache = {"hits": 0, "misses": 0}
+weights_cache = {"hits": 0, "misses": 0}
+# launch states kept, one a decode shape (device, rows, keys, route, dtype,
+# early exit), the least recently used dropped first: the offline callers
+# use 2-16 shapes, a serving ladder one a bucket
+GRAPH_SHAPES = 16
+# packed weight sets kept, one a (params object, dtype, layout, device)
+WEIGHT_SETS = 4
 # steps in the captured graph: between two host reads of the halt flag
 CHECK_EVERY = 8
 # bf16 products run on the tensor cores (mma.sync); True runs bf16
@@ -53,19 +70,22 @@ SIMT_ORDER = False
 # previous kernel's tail
 PDL = True
 # the graph of the last CUDA call: capture and instantiate ms (host
-# clock, inside the call), kernels a step, replays, the replays' ms (CUDA
-# events around them, inside the call), the route and, on the step route,
-# its rows a cluster, cluster size, clusters and the clusters the card
-# holds at once
+# clock, inside the call; 0 on a step route's call that found its shape's
+# graph, while the chain captures every call and updates its graph),
+# whether the shape's launch state was there (`cached`), kernels a step,
+# replays, the replays' ms (CUDA events around them), the route and, on
+# the step route, its rows a cluster, cluster size, clusters and the
+# clusters the card holds at once
 last_graph: dict = {}
 # what `csrc/decode.cu::run` writes to its stats (int64): host clock
 # readings in ns on the system clock (`time.time_ns()`'s): run entered,
-# capture begun, capture ended, graph instantiated (the replays follow at
-# once), capture stream synchronised, everything released; then graph
-# nodes, replays launched, the replays' device ns (CUDA events), the route
-# (1 step, 0 chain) and the step's plan (0 on the chain)
-_STATS = ("enter", "capture", "captured", "instantiated", "synced",
-          "released", "nodes", "replays", "replay_ns", "route", "rows",
+# capture begun, capture ended, graph instantiated or given this call's
+# arguments (the replays follow at once), replays launched and the halt
+# flag seen, run returned; then graph nodes, replays launched, whether the
+# launch state came built, the route (1 step, 0 chain) and the step's plan
+# (0 on the chain)
+_STATS = ("enter", "capture", "captured", "instantiated", "replayed",
+          "returned", "nodes", "replays", "cached", "route", "rows",
           "cluster", "clusters", "held")
 # the step's plan (`step_plan`)
 _PLAN = ("rows", "cluster", "clusters", "held")
@@ -249,36 +269,129 @@ class DecodeArgs(ctypes.Structure):
                 + [(n, ctypes.c_void_p) for n in _PTR_FIELDS])
 
 
-def _prepare(params, memory, memory_mask, dims: ModelDims, cd, early_exit,
-             route=None):
-    """Device tensors for the kernels of `route` (None: `route_of`'s for
-    these shapes on this device): packed weights (row-major for the chain,
-    in strips for the step), int8 cross K/V, state at step 0 and the
-    chain's scratch. Returns (dict of tensors, ints for DecodeArgs)."""
-    from plankassembly_tpu_torch.decode import (
-        precompute_cross_kv,
-    )
-    from plankassembly_tpu_torch.models.model import pointer_structure_mask
+class LaunchStates:
+    """Launch state (`csrc/decode.cu::State`: the graph, its stream, events
+    and plan) by decode shape, at most `size`, the least recently used
+    dropped (`free`) first. A call takes its shape's state out for its
+    length (`take`: None where there is none) and gives it back once it
+    has succeeded (`give`), so no two calls share one, and a call that
+    fails frees what it took or built and leaves the others as they were.
+    `counts` holds the takes that found a state (hits) and those that did
+    not (misses)."""
 
-    dev = memory.device
+    def __init__(self, size, free, counts):
+        self.size, self.counts = size, counts
+        self._free = free
+        self._states = collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    def take(self, key):
+        with self._lock:
+            state = self._states.pop(key, None)
+            self.counts["misses" if state is None else "hits"] += 1
+        return state
+
+    def give(self, key, state):
+        with self._lock:
+            dropped = [self._states.pop(key)] if key in self._states else []
+            self._states[key] = state
+            while len(self._states) > self.size:
+                dropped.append(self._states.popitem(last=False)[1])
+        for old in dropped:
+            self._free(old)
+
+    def keys(self) -> list:
+        """The shapes held, the least recently used first."""
+        with self._lock:
+            return list(self._states)
+
+    def clear(self):
+        with self._lock:
+            dropped = list(self._states.values())
+            self._states.clear()
+        for old in dropped:
+            self._free(old)
+
+
+class PreparedWeights:
+    """Packed weights by key (params object, dtype, layout, device), at
+    most `size` sets. A set is packed again when any of its source tensors
+    is another object, or was written in place since (its `_version`, which
+    an optimizer's step or a `copy_` under no_grad advances, as between a
+    fine-tune's steps and its validation), or moved (`data_ptr`). A key
+    keeps only its newest set; the sets whose sources are gone, then the
+    least recently used, are dropped first. `counts` holds the lookups
+    that found their set (hits) and those that packed it (misses)."""
+
+    def __init__(self, size, counts):
+        self.size, self.counts = size, counts
+        self._sets = collections.OrderedDict()  # key: (refs, marks, packed)
+        self._lock = threading.Lock()
+
+    def get(self, key, sources, pack):
+        """The set of `key` over the tensors `sources`, `pack()` where it
+        is missing or stale."""
+        marks = tuple((t.data_ptr(), t._version) for t in sources)
+        with self._lock:
+            held = self._sets.get(key)
+            if (held is not None and held[1] == marks
+                    and all(r() is t for r, t in zip(held[0], sources))):
+                self._sets.move_to_end(key)
+                self.counts["hits"] += 1
+                return held[2]
+            self.counts["misses"] += 1
+        packed = pack()
+        with self._lock:
+            self._sets.pop(key, None)
+            for gone in [k for k, (refs, _, _) in self._sets.items()
+                         if any(r() is None for r in refs)]:
+                del self._sets[gone]
+            self._sets[key] = ([weakref.ref(t) for t in sources], marks,
+                               packed)
+            while len(self._sets) > self.size:
+                self._sets.popitem(last=False)
+        return packed
+
+    def keys(self) -> list:
+        with self._lock:
+            return list(self._sets)
+
+    def clear(self):
+        with self._lock:
+            self._sets.clear()
+
+
+def _free_state(state):
+    _build.library().plank_decode_state_free(state)
+
+
+_launch_states = LaunchStates(GRAPH_SHAPES, _free_state, graph_cache)
+_weights = PreparedWeights(WEIGHT_SETS, weights_cache)
+# the pointer structure mask on the device, by (model shape, device)
+_struct_masks: dict = {}
+
+# the fields of DecodeArgs that `_pack_weights` fills
+_WEIGHT_FIELDS = ("wqkv", "bqkv", "wo", "bo", "cwq", "cbq", "cwo", "cbo",
+                  "w1", "b1", "w2", "b2", "ln", "final_ln", "head_w",
+                  "head_b", "emb_value", "emb_coord", "emb_pos")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _pack_weights(params, dev, cd, step):
+    """The decoder's weights, heads and embeddings as the kernels of the
+    route read them: products in `cd`, row-major (the chain) or in strips
+    (the step); norms, heads and embeddings in f32; and the cross K/V
+    projections in `cd`."""
     f32 = torch.float32
-    B, Li = memory.shape[0], memory.shape[1]
-    S, D, Dh = dims.max_output_length, dims.num_model, dims.head_dim
-    kvH, L, F, V = (dims.kv_heads, dims.num_decoder_layers,
-                    dims.num_feedforward, dims.vocab_size)
-    Dkv, NH = kvH * Dh, V + D + 1
     dec, heads, emb = params["decoder"], params["heads"], params["embed"]
     sa, ca, ffn = dec["self_attn"], dec["cross_attn"], dec["ffn"]
-
-    cross_k, cross_v = precompute_cross_kv(params, memory, dims, cd)
-    ck_q, ck_s = quantize_rows(cross_k, (2, 4))
-    cv_q, cv_s = quantize_rows(cross_v, (2, 4))
-
-    if route is None:
-        route = route_of(cd, step_plan(B, Li, dims)
-                         if dev.type == "cuda" and cd == torch.bfloat16
-                         else None)
-    step = route == "step"
 
     def c(t, dtype):
         return t.to(device=dev, dtype=dtype).contiguous()
@@ -290,11 +403,15 @@ def _prepare(params, memory, memory_mask, dims: ModelDims, cd, early_exit,
     head_w = torch.cat([heads["vocab"]["w"], heads["pointer"]["w"],
                         heads["switch"]["w"]], dim=1).to(device=dev,
                                                           dtype=f32)
+    NH = head_w.shape[1]
     if step:
         head_w = _strips(torch.nn.functional.pad(head_w, (0, -NH % 4)), 4)
     else:
         head_w = torch.nn.functional.pad(head_w, (0, -NH % _HEAD_TILE))
-    ts = {
+    return {
+        # `precompute_cross_kv`'s weights, in `cd` (not DecodeArgs')
+        "cross_attn": {n: ca[n].to(device=dev, dtype=cd)
+                       for n in ("wk", "bk", "wv", "bv")},
         "wqkv": w(torch.cat([sa["wq"], sa["wk"], sa["wv"]], dim=2)),
         "bqkv": c(torch.cat([sa["bq"], sa["bk"], sa["bv"]], dim=1), cd),
         "wo": w(sa["wo"]), "bo": c(sa["bo"], cd),
@@ -313,12 +430,63 @@ def _prepare(params, memory, memory_mask, dims: ModelDims, cd, early_exit,
         "emb_coord": c(emb["coord_out"], f32),
         "emb_pos": c(emb["pos_out"], f32),
     }
-    # a copy from pageable host memory, which returns once the stream's
-    # queued work (the encoder's tail, the work above) is done: its span
-    # holds that wait, so that `persistent.prepare` less it is set-up
-    with profiling.annotate("persistent.mask_copy"):
-        ts["struct_mask"] = c(torch.as_tensor(pointer_structure_mask(dims)),
-                              f32)
+
+
+def _struct_mask(dims: ModelDims, dev):
+    """`pointer_structure_mask(dims)` in f32 on `dev`, built once."""
+    from plankassembly_tpu_torch.models.model import pointer_structure_mask
+
+    key = (dims, str(dev))
+    mask = _struct_masks.get(key)
+    if mask is None:
+        mask = _struct_masks.setdefault(key, torch.as_tensor(
+            pointer_structure_mask(dims)).to(device=dev,
+                                             dtype=torch.float32)
+            .contiguous())
+    return mask
+
+
+def _prepare(params, memory, memory_mask, dims: ModelDims, cd, early_exit,
+             route=None):
+    """Device tensors for the kernels of `route` (None: `route_of`'s for
+    these shapes on this device): the packed weights (`_pack_weights`,
+    once per params object, dtype and layout while its tensors are
+    unchanged) and the structure mask (once per model shape and device),
+    then this call's own: int8 cross K/V, the pad mask, state at step 0 and
+    the chain's scratch. Returns (dict of tensors, ints for DecodeArgs)."""
+    from plankassembly_tpu_torch.decode import (
+        precompute_cross_kv,
+    )
+
+    dev = memory.device
+    f32 = torch.float32
+    B, Li = memory.shape[0], memory.shape[1]
+    S, D, Dh = dims.max_output_length, dims.num_model, dims.head_dim
+    kvH, L, F, V = (dims.kv_heads, dims.num_decoder_layers,
+                    dims.num_feedforward, dims.vocab_size)
+    Dkv, NH = kvH * Dh, V + D + 1
+
+    if route is None:
+        route = route_of(cd, step_plan(B, Li, dims)
+                         if dev.type == "cuda" and cd == torch.bfloat16
+                         else None)
+    step = route == "step"
+    sources = [t for part in ("decoder", "heads", "embed")
+               for t in _leaves(params[part])]
+    packed = _weights.get((id(params), cd, step, str(dev)), sources,
+                          lambda: _pack_weights(params, dev, cd, step))
+    # the same products as on `params` (a cast to `cd` is a no-op here)
+    cross_k, cross_v = precompute_cross_kv(
+        {"decoder": {"cross_attn": packed["cross_attn"]}}, memory, dims, cd)
+    ck_q, ck_s = quantize_rows(cross_k, (2, 4))
+    cv_q, cv_s = quantize_rows(cross_v, (2, 4))
+
+    ts = {n: packed[n] for n in _WEIGHT_FIELDS}
+    ts["struct_mask"] = _struct_mask(dims, dev)
+
+    def c(t, dtype):
+        return t.to(device=dev, dtype=dtype).contiguous()
+
     ts.update({
         "ck": c(ck_q.reshape(L, B, Li, Dkv), torch.int8),
         "cv": c(cv_q.reshape(L, B, Li, Dkv), torch.int8),
@@ -375,6 +543,41 @@ def _check_cuda_dims(dims: ModelDims):
             f"to 1024; got G={G}, Dh={Dh}, D={D}, F={F}")
 
 
+def _launch_key(device, ints) -> tuple:
+    """What a decode's graph depends on besides its tensors' addresses: the
+    device, the steps a graph and DecodeArgs' ints (the shapes, dtype,
+    route and early exit)."""
+    return (str(device), CHECK_EVERY, *ints.values())
+
+
+def _launch(lib, args, key, stream, num_steps):
+    """`lib.plank_decode_run` of `args` on the launch state of `key`
+    (`_launch_states`; a new one where it has none, kept once the call has
+    succeeded), `stream` the caller's. Returns (the call's stats by name,
+    steps run (`num_steps`, a device tensor, read once the call is done),
+    the replays' device ns)."""
+    state = _launch_states.take(key)
+    if state is None:
+        state = lib.plank_decode_state_new()
+        if not state:
+            raise MemoryError("plank_decode_state_new")
+    raw = (ctypes.c_int64 * len(_STATS))()
+    replay_ns = ctypes.c_int64()
+    try:
+        _build.check(lib.plank_decode_run(ctypes.byref(args), CHECK_EVERY,
+                                          stream, state, raw),
+                     "plank_decode_run")
+        steps = int(num_steps.item())  # the caller's stream: replays done
+        _build.check(lib.plank_decode_replay_ns(state,
+                                                ctypes.byref(replay_ns)),
+                     "plank_decode_replay_ns")
+    except BaseException:
+        lib.plank_decode_state_free(state)
+        raise
+    _launch_states.give(key, state)
+    return dict(zip(_STATS, raw)), steps, replay_ns.value
+
+
 @torch.no_grad()
 def persistent_greedy_decode(params, memory, memory_mask, dims: ModelDims, *,
                              compute_dtype=torch.bfloat16, early_exit=True):
@@ -384,9 +587,11 @@ def persistent_greedy_decode(params, memory, memory_mask, dims: ModelDims, *,
     (zero for steps not run).
 
     On a CUDA tensor: one call of `csrc/decode.cu`'s loop (a graph of
-    `CHECK_EVERY` steps captured for this call and replayed until every row
-    is done) on the route `route_of(compute_dtype, batch)`; a failed build,
-    capture or launch raises. On a CPU tensor: `greedy_decode_reference`."""
+    `CHECK_EVERY` steps replayed until every row is done) on the route
+    `route_of(compute_dtype, batch)`, with the launch state of these shapes
+    (`LaunchStates`: built by their first call, reused by the later ones);
+    a failed build, capture or launch raises and keeps no launch state. On
+    a CPU tensor: `greedy_decode_reference`."""
     global launches
     _check_inputs(memory, memory_mask, dims, compute_dtype)
     if memory.device.type == "cpu":
@@ -401,32 +606,29 @@ def persistent_greedy_decode(params, memory, memory_mask, dims: ModelDims, *,
                             compute_dtype, early_exit)
     args = DecodeArgs(**ints, **{n: ts[n].data_ptr() if n in ts else 0
                                  for n in _PTR_FIELDS})
-    lib = _build.library()
-    stream = _build.stream_handle(memory.device)
-    raw = (ctypes.c_int64 * len(_STATS))()
     launches += 1
-    _build.check(lib.plank_decode_run(ctypes.byref(args), CHECK_EVERY,
-                                      stream, raw), "plank_decode_run")
-    st = dict(zip(_STATS, raw))
+    st, num_steps, replay_ns = _launch(
+        _build.library(), args, _launch_key(memory.device, ints),
+        _build.stream_handle(memory.device), ts["num_steps"])
     route = "step" if st["route"] else "chain"
     launches_by_route[route] += 1
-    num_steps = int(ts["num_steps"].item())
+    cached = bool(st["cached"])
     last_graph.clear()
     last_graph.update(capture_ms=(st["captured"] - st["capture"]) / 1e6,
                       instantiate_ms=(st["instantiated"]
                                       - st["captured"]) / 1e6,
-                      nodes_per_step=st["nodes"] / CHECK_EVERY,
-                      replays=st["replays"], replay_ms=st["replay_ns"] / 1e6,
+                      cached=cached, nodes_per_step=st["nodes"] / CHECK_EVERY,
+                      replays=st["replays"], replay_ms=replay_ns / 1e6,
                       route=route, rows_per_cluster=st["rows"],
                       cluster_size=st["cluster"], clusters=st["clusters"],
                       held=st["held"])
     # the call's phases as spans, children of the span open here
     profiling.record("persistent.graph_build", st["enter"],
                      st["instantiated"],
-                     nodes_per_step=last_graph["nodes_per_step"], route=route)
+                     nodes_per_step=last_graph["nodes_per_step"], route=route,
+                     cached=cached)
     profiling.record("persistent.replay", st["instantiated"],
-                     st["synced"], replays=st["replays"], steps=num_steps,
+                     st["replayed"], replays=st["replays"], steps=num_steps,
                      device_ms=last_graph["replay_ms"])
-    profiling.record("persistent.release", st["synced"], st["released"])
     return {"samples": ts["output"], "attach": ts["attach"],
             "num_steps": num_steps, "hidden": ts["h_cache"]}

@@ -11,10 +11,16 @@ run:
   (m, l, o) combined in rank order; held against the plain version's
   cross-attention and the Pallas kernel in interpret mode;
 - `_prepare`: the state and scratch the kernels read, without the split-K
-  workspaces and counters of the earlier design.
+  workspaces and counters of the earlier design; the packed weights and
+  structure mask kept between calls, every other tensor the call's own;
+- the caches a decode shape and a params object keep between calls
+  (`LaunchStates`, `PreparedWeights`): what each is keyed on, what makes
+  packed weights stale, the least recently used shape dropped past
+  `GRAPH_SHAPES`, and a failed call that keeps nothing it built.
 
 The CUDA kernels themselves run only on the GPU (`chip_smoke.py` decode,
 serve and fit hold them against the plain version)."""
+import copy
 import ctypes
 import dataclasses
 import math
@@ -33,6 +39,7 @@ from plankassembly_tpu.ops.cross_decode import (
 )
 from plankassembly_tpu_torch.checkpoint import params_from_jax
 from plankassembly_tpu_torch.config import ModelDims
+from plankassembly_tpu_torch.decode import precompute_cross_kv
 from plankassembly_tpu_torch.ops import persistent_decode as PD
 from plankassembly_tpu_torch.ops.cross_decode import quantize_rows
 from tests.tiny import tiny_config
@@ -267,10 +274,11 @@ def test_gqa_cross_schedule_matches_pallas(pattern):
 
 
 # ------------------------------------------------------------- _prepare
-def _tiny(kv=1):
+def _tiny(kv=1, layers=1):
     cfg = tiny_config()
     cfg = dataclasses.replace(
-        cfg, MODEL=dataclasses.replace(cfg.MODEL, NUM_KV_HEAD=kv))
+        cfg, MODEL=dataclasses.replace(cfg.MODEL, NUM_KV_HEAD=kv,
+                                       NUM_DECODER_LAYERS=layers))
     params = init_params(jax.random.PRNGKey(0), JaxDims.from_config(cfg))
     return params_from_jax(jax.tree.map(np.asarray, params)), \
         ModelDims.from_config(cfg)
@@ -284,7 +292,7 @@ ONE_WAVE = {"rows": 5, "cluster": 8, "clusters": 13, "held": 13}
     (torch.float32, "chain"), (torch.bfloat16, "step"),
     (torch.bfloat16, "chain")], ids=["f32", "bf16", "bf16-chain"])
 def test_prepare_holds_only_what_the_kernels_read(cd, route):
-    params, dims = _tiny()
+    params, dims = _tiny(layers=2)
     B, Li = 3, 20
     rng = np.random.default_rng(0)
     memory = torch.from_numpy(rng.standard_normal(
@@ -301,6 +309,17 @@ def test_prepare_holds_only_what_the_kernels_read(cd, route):
     for gone in ("gemm_ws", "gemm_counters", "attn_ws", "attn_counters"):
         assert gone not in ts
     assert set(ints) == set(PD._INT_FIELDS)
+    # the kernels read each tensor from its pointer, row-major
+    for n, t in ts.items():
+        assert t.is_contiguous(), n
+    # the cross K/V of the kept projections: those of the params, bit for
+    # bit
+    L, kvH = dims.num_decoder_layers, dims.kv_heads
+    for i, (n, s) in enumerate((("ck", "ck_scale"), ("cv", "cv_scale"))):
+        q, scale = quantize_rows(precompute_cross_kv(params, memory, dims,
+                                                     cd)[i], (2, 4))
+        assert torch.equal(ts[n], q.reshape(L, B, Li, -1))
+        assert torch.equal(ts[s], scale.reshape(L, B, kvH))
     args = PD.DecodeArgs(**ints, **{n: 0 for n in PD._PTR_FIELDS})
     # the route's flag; bf16 products on the tensor cores unless asked for
     # the SIMT order
@@ -322,6 +341,14 @@ def test_prepare_holds_only_what_the_kernels_read(cd, route):
     assert (ts["attach"] == -1).all()
     assert ts["k_cache"].dtype == cd
     assert step or ts["q"].dtype == cd
+    # the packed weights and the structure mask are kept: a second call
+    # reads the same tensors; the rest is the call's own
+    again, _ = PD._prepare(params, memory, mask, dims, cd, early_exit=True,
+                           route=route)
+    kept = set(PD._WEIGHT_FIELDS) | {"struct_mask"}
+    assert kept <= set(ts)
+    for n in set(ts):
+        assert (again[n] is ts[n]) == (n in kept), n
 
 
 @pytest.mark.parametrize("cd,simt_order,route", [
@@ -398,3 +425,220 @@ def test_cuda_dims_check_takes_the_flagship_and_refuses_the_rest():
     PD._check_cuda_dims(flagship)
     with pytest.raises(ValueError, match="CUDA decode"):
         PD._check_cuda_dims(dims)  # tiny: D=16, Dh=8
+
+
+def test_quantize_rows_gives_contiguous_rows_of_any_layout():
+    """The einsum's cross K/V come out permuted: the int8 values and
+    scales are contiguous all the same, and equal those of a contiguous
+    copy of the input."""
+    x = torch.randn(3, 2, 5, 2, 4).to(torch.bfloat16).permute(0, 2, 1, 3, 4)
+    assert not x.is_contiguous()
+    q, scale = quantize_rows(x, (2, 4))
+    assert q.is_contiguous() and scale.is_contiguous()
+    q0, scale0 = quantize_rows(x.contiguous(), (2, 4))
+    assert torch.equal(q, q0) and torch.equal(scale, scale0)
+    xf = x.float()  # the formula, on the input as it is
+    s = torch.clamp(xf.abs().amax(dim=(2, 4), keepdim=True) / 127.0,
+                    min=1e-8)
+    assert torch.equal(q, torch.round(xf / s).to(torch.int8))
+
+
+# --------------------------------------------------------------- the caches
+@pytest.fixture
+def fresh_weights(monkeypatch):
+    """An empty weights cache of its own in `_prepare`'s place."""
+    counts = {"hits": 0, "misses": 0}
+    cache = PD.PreparedWeights(PD.WEIGHT_SETS, counts)
+    monkeypatch.setattr(PD, "_weights", cache)
+    return cache
+
+
+def _prepare_tiny(params, dims, cd=torch.bfloat16, route="step"):
+    memory = torch.zeros(2, 5, dims.num_model)
+    mask = torch.zeros(2, 5, dtype=torch.bool)
+    return PD._prepare(params, memory, mask, dims, cd, early_exit=True,
+                       route=route)[0]
+
+
+def _sources(params):
+    return [t for part in ("decoder", "heads", "embed")
+            for t in PD._leaves(params[part])]
+
+
+def test_packed_weights_hold_across_calls_and_follow_each_update(
+        fresh_weights):
+    """The same params: the same packed tensors. An in-place update of any
+    source tensor (as an optimizer's step makes it), or one leaf replaced
+    by another tensor: packed again, with the new values. One set per
+    params object survives the updates."""
+    params, dims = _tiny()
+    first = _prepare_tiny(params, dims)
+    assert _prepare_tiny(params, dims)["wqkv"] is first["wqkv"]
+    assert fresh_weights.counts == {"hits": 1, "misses": 1}
+    before = first
+    for i, t in enumerate(_sources(params)):
+        with torch.no_grad():
+            t.add_(1.0 / (i + 2))
+        now = _prepare_tiny(params, dims)
+        assert now["wqkv"] is not before["wqkv"], i
+        before = now
+    assert fresh_weights.counts["misses"] == 1 + len(_sources(params))
+    assert len(fresh_weights.keys()) == 1
+    # the packed weights are those of the updated params
+    want = PD._pack_weights(params, torch.device("cpu"), torch.bfloat16,
+                            True)
+    for n in PD._WEIGHT_FIELDS:
+        assert torch.equal(before[n], want[n]), n
+    # a leaf replaced by an equal tensor of its own is another source
+    params["embed"]["value"] = params["embed"]["value"].clone()
+    assert _prepare_tiny(params, dims)["wqkv"] is not before["wqkv"]
+    assert len(fresh_weights.keys()) == 1
+
+
+def test_packed_weights_are_kept_per_params_dtype_and_layout(fresh_weights):
+    params, dims = _tiny()
+    other = copy.deepcopy(params)  # equal values, another object
+    step = _prepare_tiny(params, dims)
+    chain = _prepare_tiny(params, dims, route="chain")
+    f32 = _prepare_tiny(params, dims, cd=torch.float32, route="chain")
+    theirs = _prepare_tiny(other, dims)
+    assert len({id(t["wqkv"]) for t in (step, chain, f32, theirs)}) == 4
+    assert len(fresh_weights.keys()) == 4
+    assert torch.equal(theirs["wqkv"], step["wqkv"])
+    # every set stays while its params live, each call a hit
+    for got, (p, cd, route) in zip(
+            (step, chain, f32, theirs),
+            [(params, torch.bfloat16, "step"), (params, torch.bfloat16,
+                                                "chain"),
+             (params, torch.float32, "chain"), (other, torch.bfloat16,
+                                                "step")]):
+        assert _prepare_tiny(p, dims, cd, route)["wqkv"] is got["wqkv"]
+    assert fresh_weights.counts == {"hits": 4, "misses": 4}
+
+
+def test_packed_weights_of_params_gone_are_dropped_first(fresh_weights):
+    """Past `WEIGHT_SETS`, the sets whose params are gone leave before the
+    least recently used live one."""
+    params, dims = _tiny()
+    _prepare_tiny(params, dims)
+    for _ in range(PD.WEIGHT_SETS + 2):  # params of a moment each
+        _prepare_tiny(copy.deepcopy(params), dims)
+    keys = fresh_weights.keys()
+    assert len(keys) <= 2
+    assert keys[0][0] == id(params)
+
+
+@pytest.mark.parametrize("change", [
+    dict(B=4), dict(Li=48), dict(step=False), dict(cd=torch.float32),
+    dict(early_exit=False)], ids=["B", "Li", "route", "dtype", "early_exit"])
+def test_launch_key_separates_each_shape_and_setting(change):
+    _, dims = _tiny()
+    base = dict(B=3, Li=32, cd=torch.bfloat16, early_exit=True, step=True)
+    key = PD._launch_key(torch.device("cuda:0"), PD._ints(
+        base["B"], base["Li"], dims, base["cd"], base["early_exit"],
+        base["step"]))
+    same = PD._launch_key(torch.device("cuda:0"), PD._ints(
+        base["B"], base["Li"], dims, base["cd"], base["early_exit"],
+        base["step"]))
+    other = dict(base, **change)
+    moved = PD._launch_key(torch.device("cuda:0"), PD._ints(
+        other["B"], other["Li"], dims, other["cd"], other["early_exit"],
+        other["step"]))
+    assert key == same and hash(key) == hash(same)
+    assert moved != key
+    assert PD._launch_key(torch.device("cuda:1"), PD._ints(
+        base["B"], base["Li"], dims, base["cd"], base["early_exit"],
+        base["step"])) != key
+
+
+def test_launch_states_keep_the_16_most_recent_shapes():
+    freed, counts = [], {"hits": 0, "misses": 0}
+    cache = PD.LaunchStates(PD.GRAPH_SHAPES, freed.append, counts)
+    assert PD.GRAPH_SHAPES == 16
+    for k in range(16):
+        assert cache.take(k) is None
+        cache.give(k, f"state{k}")
+    assert freed == [] and cache.keys() == list(range(16))
+    # a call of shape 0 makes it the most recent: shape 1 goes first
+    assert cache.take(0) == "state0"
+    cache.give(0, "state0")
+    assert cache.take(16) is None
+    cache.give(16, "state16")
+    assert freed == ["state1"]
+    assert cache.keys() == list(range(2, 16)) + [0, 16]
+    assert counts == {"hits": 1, "misses": 17}
+    cache.clear()
+    assert sorted(freed) == sorted(f"state{k}" for k in range(17))
+    assert cache.keys() == []
+
+
+def test_a_shape_taken_by_one_call_is_not_shared():
+    """While a call holds its shape's state, another call of the shape
+    builds its own; when both give theirs back one is kept, one freed."""
+    freed, counts = [], {"hits": 0, "misses": 0}
+    cache = PD.LaunchStates(PD.GRAPH_SHAPES, freed.append, counts)
+    cache.give("shape", "a")
+    assert cache.take("shape") == "a"
+    assert cache.take("shape") is None
+    cache.give("shape", "b")
+    cache.give("shape", "a")
+    assert freed == ["b"] and cache.keys() == ["shape"]
+    assert cache.take("shape") == "a"
+
+
+class FakeLibrary:
+    """`plank_decode_*` of the CUDA library, on the host: states are ints,
+    a run writes its stats (`cached` 1 for a state it saw before) or
+    returns `fail` (a CUDA error)."""
+
+    def __init__(self):
+        self.made, self.freed, self.built = 0, [], set()
+        self.fail = 0
+
+    def plank_decode_state_new(self):
+        self.made += 1
+        return 1000 + self.made
+
+    def plank_decode_state_free(self, state):
+        self.freed.append(state)
+
+    def plank_decode_run(self, args, steps, stream, state, stats):
+        if self.fail:
+            return self.fail
+        stats[PD._STATS.index("cached")] = state in self.built
+        self.built.add(state)
+        return 0
+
+    def plank_decode_replay_ns(self, state, ns):
+        ns._obj.value = 1234
+        return 0
+
+
+def test_launch_keeps_a_state_only_once_its_call_succeeded(monkeypatch):
+    counts = {"hits": 0, "misses": 0}
+    lib = FakeLibrary()
+    cache = PD.LaunchStates(PD.GRAPH_SHAPES, lib.plank_decode_state_free,
+                            counts)
+    monkeypatch.setattr(PD, "_launch_states", cache)
+    steps = torch.tensor([7], dtype=torch.int32)
+    args = PD.DecodeArgs()
+    cache.give("other", 1)
+    # a first call that fails: nothing kept, what it built freed
+    lib.fail = 700
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        PD._launch(lib, args, "shape", 0, steps)
+    assert cache.keys() == ["other"] and lib.freed == [1001]
+    # a first call that succeeds builds a state and keeps it
+    lib.fail = 0
+    st, n, ns = PD._launch(lib, args, "shape", 0, steps)
+    assert (st["cached"], n, ns) == (0, 7, 1234)
+    assert cache.keys() == ["other", "shape"]
+    # the next call of the shape runs on it
+    st, _, _ = PD._launch(lib, args, "shape", 0, steps)
+    assert st["cached"] == 1 and lib.made == 2
+    assert counts == {"hits": 1, "misses": 2}
+    # a later call that fails drops the shape's state, and only it
+    lib.fail = 719
+    with pytest.raises(RuntimeError, match="CUDA error 719"):
+        PD._launch(lib, args, "shape", 0, steps)
+    assert cache.keys() == ["other"] and lib.freed == [1001, 1002]

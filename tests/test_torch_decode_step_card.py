@@ -6,14 +6,20 @@ and visible (512, 560) buckets, and on a ragged mask (a row with no real
 key, one with only key 0, a masked key inside a row); bf16 decodes take
 the route `route_of` gives their plan (the chain on mma.sync past one wave
 of clusters, B=512) with the plain version's tokens; an f32 decode takes
-the chain and gives the plain version's tokens. Needs a CUDA device (skips
-without one):
+the chain and gives the plain version's tokens. On both routes, a call
+that finds its shape's launch state and its packed weights kept gives a
+fresh decode's tokens, attach, steps and hidden bit for bit: after a
+longer decode of the shape, after an in-place update of the weights, and
+after the shape was dropped past `GRAPH_SHAPES` and built again; and the
+tensors an earlier call returned stay as they were. Needs a CUDA device
+(skips without one):
 
   python -m pytest --noconftest tests/test_torch_decode_step_card.py -q
 
 (`--noconftest`: `tests/conftest.py` sets up JAX, which a machine with
 the card need not have)
 """
+import copy
 import gzip
 import json
 import os
@@ -192,3 +198,142 @@ def test_f32_takes_the_chain_with_the_plain_tokens(served):
     assert got["num_steps"] == want["num_steps"]
     assert torch.equal(got["samples"], want["samples"])
     assert torch.equal(got["attach"], want["attach"])
+
+
+# ------------------------------------------- the launch state kept per shape
+ROUTES = ["step", "chain"]
+
+
+def _run(served, rows, route, params=None, Li=None):
+    """The CUDA decode of drawings `rows` on route `route` (bf16, early
+    exit), synchronised; (its result, `last_graph`)."""
+    from plankassembly_tpu_torch.ops import persistent_decode as PD
+
+    at, p, dims = served
+    memory, mask = at(torch.bfloat16) if Li is None else at(torch.bfloat16,
+                                                             Li)
+    rows = torch.as_tensor(rows)
+    saved = PD.route_of
+    PD.route_of = lambda cd, plan: route
+    try:
+        got = PD.persistent_greedy_decode(
+            p if params is None else params, memory[rows], mask[rows], dims,
+            compute_dtype=torch.bfloat16, early_exit=True)
+        torch.cuda.synchronize()
+    finally:
+        PD.route_of = saved
+    return got, dict(PD.last_graph)
+
+
+def _fresh(served, rows, route, params=None, Li=None):
+    """`_run` with nothing kept from earlier calls: the decode without the
+    caches, as every call built it before they existed."""
+    from plankassembly_tpu_torch.ops import persistent_decode as PD
+
+    PD._launch_states.clear()
+    PD._weights.clear()
+    got, graph = _run(served, rows, route, params, Li)
+    assert not graph["cached"]
+    return got
+
+
+def _same(got, want):
+    assert got["num_steps"] == want["num_steps"]
+    for k in ("samples", "attach", "hidden"):
+        assert torch.equal(got[k], want[k]), k
+
+
+def _copy(out):
+    return {k: v.clone() if torch.is_tensor(v) else v for k, v in out.items()}
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("route", ROUTES)
+def test_a_shapes_second_call_is_a_hit_with_a_fresh_decodes_bits(served,
+                                                                   route):
+    from plankassembly_tpu_torch.ops import persistent_decode as PD
+
+    rows = list(range(5))
+    want = _fresh(served, rows, route)
+    hits, built = PD.graph_cache["hits"], PD.weights_cache["hits"]
+    got, graph = _run(served, rows, route)
+    assert graph["cached"] and graph["route"] == route
+    assert PD.graph_cache["hits"] == hits + 1
+    assert PD.weights_cache["hits"] == built + 1
+    if route == "step":  # the kept graph takes this call's arguments
+        assert graph["capture_ms"] == 0 and graph["instantiate_ms"] == 0
+    _same(got, want)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("route", ROUTES)
+def test_a_short_decode_after_a_long_one_is_a_fresh_decode(served, route):
+    """One row at a time: the drawing that decodes longest, then the one
+    that ends first, on the kept state; the short one's trailing tokens
+    and the zero hidden columns after its steps as a fresh decode's; the
+    long one's returned tensors untouched by the short call."""
+    runs = {i: _fresh(served, [i], route) for i in range(0, 64, 8)}
+    steps = {i: r["num_steps"] for i, r in runs.items()}
+    long, short = max(steps, key=steps.get), min(steps, key=steps.get)
+    assert steps[long] > steps[short]
+    first, _ = _run(served, [long], route)
+    kept = _copy(first)
+    got, graph = _run(served, [short], route)
+    assert graph["cached"]
+    _same(got, runs[short])
+    assert not got["hidden"][:, got["num_steps"]:].any()
+    _same(first, kept)
+    _same(first, runs[long])
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("route", ROUTES)
+def test_an_in_place_weight_update_is_decoded_after_it(served, route):
+    """A fine-tune's validation between two steps: the weights change in
+    place (the optimizer's update), the shape's graph stays, the weights
+    are packed again, and the decode is a fresh one's."""
+    from plankassembly_tpu_torch.ops import persistent_decode as PD
+
+    _, p, _ = served
+    params = copy.deepcopy(p)
+    rows = list(range(4))
+    before = _fresh(served, rows, route, params)
+    packed = PD.weights_cache["misses"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        for t in (params["decoder"]["ffn"]["w1"],
+                  params["heads"]["vocab"]["w"],
+                  params["embed"]["value"]):
+            t.add_(0.05 * t.std() * torch.randn(t.shape, generator=gen,
+                                                device=t.device))
+    got, graph = _run(served, rows, route, params)
+    assert graph["cached"]
+    assert PD.weights_cache["misses"] == packed + 1
+    want = _fresh(served, rows, route, params)
+    _same(got, want)
+    assert not torch.equal(got["hidden"], before["hidden"])
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("route", ROUTES)
+def test_shapes_past_the_bound_are_dropped_and_built_again(served, route):
+    """GRAPH_SHAPES + 1 shapes (1 to 17 rows at the side-face bucket), in
+    turn and again: each past the bound drops the least recently used, so
+    the second round misses every shape and still gives the first round's
+    bits."""
+    from plankassembly_tpu_torch.ops import persistent_decode as PD
+
+    PD._launch_states.clear()
+    n = PD.GRAPH_SHAPES + 1
+    first = {}
+    for B in range(1, n + 1):
+        first[B], graph = _run(served, list(range(B)), route, Li=256)
+        assert not graph["cached"]
+    assert len(PD._launch_states.keys()) == PD.GRAPH_SHAPES
+    for B in range(1, n + 1):
+        got, graph = _run(served, list(range(B)), route, Li=256)
+        assert not graph["cached"], B
+        _same(got, first[B])
+    got, graph = _run(served, list(range(n)), route, Li=256)
+    assert graph["cached"]
+    _same(got, first[n])

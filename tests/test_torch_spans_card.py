@@ -1,8 +1,8 @@
-"""The program's spans on the card: the persistent decode's four phases lie
-in order inside their `decode_from_memory`, its wait for the device inside
-the first, and a CUDA trace of
-`trace_context` carries the spans on its host clock, with no device
-activity under a span's name. Needs a CUDA device (skips without one):
+"""The program's spans on the card: the persistent decode's three phases
+lie in order inside their `decode_from_memory`, a shape's first call
+building its graph and its later calls finding it (`cached`), and a CUDA
+trace of `trace_context` carries the spans on its host clock, with no
+device activity under a span's name. Needs a CUDA device (skips without one):
 
   python -m pytest --noconftest tests/test_torch_spans_card.py -q
 
@@ -26,7 +26,7 @@ from plankassembly_tpu_torch.tools import trace_summary
 from plankassembly_tpu_torch.utils import profiling as P
 
 PHASES = ["persistent.prepare", "persistent.graph_build",
-          "persistent.replay", "persistent.release"]
+          "persistent.replay"]
 
 
 @pytest.fixture
@@ -83,10 +83,13 @@ def _decode(params, batch, dims):
 
 
 @pytest.mark.card
-def test_persistent_phases_in_order_inside_their_decode(card):
+@pytest.mark.parametrize("cached", [False, True], ids=["miss", "hit"])
+def test_persistent_phases_in_order_inside_their_decode(card, cached):
     params, batch, dims = _model(card)
     _decode(params, batch, dims)        # builds the kernels, untraced
     torch.cuda.synchronize()
+    if not cached:
+        PD._launch_states.clear()
     assert P.spans() == []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         out = _decode(params, batch, dims)
@@ -98,18 +101,21 @@ def test_persistent_phases_in_order_inside_their_decode(card):
     assert all(s.parent == dec.id and s.root == dec.root for s in phases)
     bounds = [dec.t0] + [t for s in phases for t in (s.t0, s.t1)] + [dec.t1]
     assert bounds == sorted(bounds)
-    # the set-up's wait for the device, inside it
-    (wait,) = [s for s in spans if s.name == "persistent.mask_copy"]
-    assert wait.parent == phases[0].id
-    assert phases[0].t0 <= wait.t0 <= wait.t1 <= phases[0].t1
+    # the structure mask is on the device: no copy waits in the set-up
+    assert not [s for s in spans if s.name == "persistent.mask_copy"]
     replay = phases[2]
     assert replay.attrs["steps"] == out["num_steps"] > 0
     assert replay.attrs["replays"] >= 1 and replay.attrs["device_ms"] > 0
     assert phases[1].attrs["nodes_per_step"] > 0
+    assert phases[1].attrs["cached"] == cached == PD.last_graph["cached"]
     assert PD.last_graph["replays"] == replay.attrs["replays"]
     assert PD.last_graph["replay_ms"] == replay.attrs["device_ms"]
-    assert PD.last_graph["capture_ms"] > 0 \
-        and PD.last_graph["instantiate_ms"] > 0
+    if not cached:
+        assert PD.last_graph["capture_ms"] > 0 \
+            and PD.last_graph["instantiate_ms"] > 0
+    elif PD.last_graph["route"] == "step":  # its graph takes new arguments
+        assert PD.last_graph["capture_ms"] == 0 \
+            and PD.last_graph["instantiate_ms"] == 0
 
 
 @pytest.mark.card
@@ -125,8 +131,8 @@ def test_cuda_trace_carries_the_spans_and_no_device_span(card, tmp_path):
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     ours = {e["name"] for e in events if "span" in e.get("args", {})}
-    assert {"plank-batch", "greedy_decode", "encode", "decode_from_memory",
-            "persistent.mask_copy"} | set(PHASES) <= ours
+    assert {"plank-batch", "greedy_decode", "encode",
+            "decode_from_memory"} | set(PHASES) <= ours
     device = [e for e in events if e.get("cat") in
               ("kernel", "gpu_memcpy", "gpu_memset", "gpu_user_annotation")]
     assert device and not {e["name"] for e in device} & ours
