@@ -29,9 +29,7 @@ instead of hanging, each printing one line (or a few) when it ends:
    attach, their hidden states); the time of the call's cross K/V
    preparation alone, the graph's kernels a step, its capture and
    instantiate ms and its replays' ms, the device idle share over the call,
-   one step's kernels by device time, the loop with every bf16 product
-   in the SIMT order (time, token agreement) and the loop without
-   programmatic dependent launch (time, equal samples); at B=32 and B=64
+   one step's kernels by device time; at B=32 and B=64
    the route route_of takes, its ms a step, nodes a step and plan, and its
    tokens and steps against the plain version's;
 4. the main path: load checkpoints/gqa_complete_ep221.npz, pack the 64
@@ -768,55 +766,29 @@ def raster_flash_cases(phase):
 
 
 # ---------------------------------------------------------------- phase 3
-def decode_bound(dims, params, memory, mask, steps, cd):
-    """Least time for persistent_greedy_decode on these inputs. Bytes: the
-    real (unmasked) memory rows and the mask read once, each parameter the
-    kernels read once at the dtype they read it (the decoder's products
-    in the compute dtype, norms, heads and embeddings in f32), the outputs
-    written once. Operations: the cross K/V projection of the real memory
-    rows, each step's per-row products, self-attention over the keys so
-    far, cross-attention over each row's real keys (masked keys add exactly
-    0), and the pointer logits; the heads and pointer logits in f32, the
-    rest in the compute dtype."""
-    D, F, L, V, S = (dims.num_model, dims.num_feedforward,
-                     dims.num_decoder_layers, dims.vocab_size,
-                     dims.max_output_length)
-    Dkv, H, Dh = dims.kv_heads * dims.head_dim, dims.num_head, dims.head_dim
-    B = memory.shape[0]
+def decode_bound(dims, memory, mask, steps):
+    """Least time for a bf16 persistent_greedy_decode of `steps` steps on
+    these inputs, and what sets it ("bytes" or "operations"): the
+    benchmark's `bench_port/metrics/_bounds.decode_ms`, which counts the
+    real memory rows, the parameters at the dtypes the kernels read and
+    the outputs once, and the operations these inputs need. Its bytes do
+    not grow with the steps and its operations do, so the bound is the
+    bytes' where the steps leave it as it is at no step."""
+    from bench_port.metrics._bounds import decode_ms
+
+    d = {"D": dims.num_model, "Dkv": dims.kv_heads * dims.head_dim,
+         "F": dims.num_feedforward, "V": dims.vocab_size,
+         "S": dims.max_output_length, "Ld": dims.num_decoder_layers,
+         "dof": dims.num_output_dof}
+    rows, width = mask.shape
     real = int((~mask.bool()).sum().item())       # real memory rows, all rows
-    cd_size = torch.tensor([], dtype=cd).element_size()
-    dec = params["decoder"]
-    nparam = sum(t.numel() for n in ("self_attn", "cross_attn", "ffn")
-                 for t in dec[n].values()) * cd_size
-    nparam += 4 * sum(t.numel() for n in ("norm1", "norm2", "norm3",
-                                          "final_norm")
-                      for t in dec[n].values())
-    nparam += 4 * sum(t.numel() for t in _leaves(params["heads"]))
-    nparam += 4 * sum(params["embed"][n].numel()
-                      for n in ("value", "coord_out", "pos_out"))
-    nbytes = (real * D * memory.element_size() + mask.numel() + nparam
-              + 2 * B * S * 4)
-    proj = 2.0 * real * D * 2 * Dkv * L
-    layers = 2.0 * L * (D * (D + 2 * Dkv) + 3 * D * D + 2 * D * F)
-    attn = sum(B * L * 4.0 * H * Dh * (t + 1) + L * 4.0 * H * Dh * real
-               for t in range(steps))
-    low = proj + B * steps * layers + attn             # compute dtype
-    f32 = sum(B * (2.0 * D * (V + D + 1) + 2.0 * D * t)
-              for t in range(steps))                   # heads, pointers
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (low / PEAK_FLOPS[cd] + f32 / PEAK_FLOPS[torch.float32]) * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    ms = decode_ms(d, rows, width, real, steps)
+    return ms, ("bytes" if ms == decode_ms(d, rows, width, real, 0)
+                else "operations")
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
-# the redesigned decode loop's kernels (csrc/decode.cu), for the breakdown
+# the redesigned decode loop's kernels (csrc/decode.cu, decode_step.cu),
+# for the breakdown
 DECODE_KERNELS = ("cluster_gemm_kernel", "self_attn_kernel",
                   "cross_attn_kernel", "final_norm_kernel", "pointer_kernel",
                   "sample_kernel", "step_kernel")
@@ -825,9 +797,11 @@ DECODE_KERNELS = ("cluster_gemm_kernel", "self_attn_kernel",
 def decode_idle_share(fn):
     """(device idle share of one fn() call's wall time, busy ms, wall ms)
     under torch.profiler: 1 - (the union of its kernels' and copies'
-    device intervals) / (host clock from the call to its synchronise). The
-    union, not the sum: with programmatic dependent launch a kernel starts
-    before the previous one ends."""
+    device intervals, the benchmark's `_intervals.busy`) / (host clock from
+    the call to its synchronise). The union, not the sum: with programmatic
+    dependent launch a kernel starts before the previous one ends."""
+    from bench_port.metrics._intervals import busy as union
+
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -835,14 +809,9 @@ def decode_idle_share(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, -math.inf
-    for a, b in spans:
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    busy /= 1e3
+    busy = union((e.time_range.start, e.time_range.end)
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     check(busy > 0, "decode: the profiler saw no device time")
     return 1 - busy / wall, busy, wall
 
@@ -1069,26 +1038,13 @@ def phase_decode(params, dims, batch, gt, bucket, full=None):
     hits = PD.graph_cache["hits"] - hits0
     prep_ms, _ = timed(lambda: {"num_steps": len(prepare())}, 3)
     p_ms, p_steps = timed(plain, 2)
-    # launches after the previous kernel's end (no programmatic dependent
-    # launch): what the overlap gains
-    with _patched(PD, PDL=False):
-        nopdl_out = kern()
-        nopdl_same = bool((nopdl_out["samples"] == k_out["samples"]).all())
-        nopdl_ms, _ = timed(kern, 3)
-    # the rule's comparison (PERF.md): every bf16 product in the SIMT order
-    with _patched(PD, SIMT_ORDER=True):
-        simt_out = kern()
-        agree_simt = (simt_out["samples"].cpu() == ps).float().mean().item()
-        simt_ms, _ = timed(kern, 3)
-    bound_ms, bound_by = decode_bound(dims, params, memory, mask,
-                                       k_steps, cd)
+    bound_ms, bound_by = decode_bound(dims, memory, mask, k_steps)
     idle, busy_ms, wall_ms = decode_idle_share(kern)
     # one step's kernels: a decode of every step, its loop kernels' device
-    # time over S (the cross K/V preparation's kernels apart); without the
-    # overlap of programmatic dependent launch, in which a kernel's time
-    # would include its wait for the previous one
-    with _patched(PD, PDL=False):
-        rows = kernel_breakdown(lambda: kern(False), reps=3, warmup=1)
+    # time over S (the cross K/V preparation's kernels apart); each kernel
+    # starts while the one before it ends (programmatic dependent launch),
+    # so a kernel's time holds some of its wait, and the times overlap
+    rows = kernel_breakdown(lambda: kern(False), reps=3, warmup=1)
     step_rows = [(n, c / S, us / S) for n, c, us in rows
                  if any(k in n for k in DECODE_KERNELS)]
     prep_us = sum(us for n, _, us in rows
@@ -1117,14 +1073,11 @@ def phase_decode(params, dims, batch, gt, bucket, full=None):
         f"{hits} calls after it found their shape's launch state "
         f"(graph_cache hits); "
         f"device idle share over the call "
-        f"{idle:.3f} (busy {busy_ms:.2f} of {wall_ms:.2f} ms, profiled); "
-        f"every bf16 product in the SIMT order: {simt_ms:.2f} ms, token "
-        f"agreement with the plain version {agree_simt:.4f}; without "
-        f"programmatic dependent launch: {nopdl_ms:.2f} ms, samples equal "
-        f"{nopdl_same}")
-    log(f"  one step's kernels (without programmatic dependent launch; "
-        f"device time over {S} steps; the call's "
-        f"other kernels {prep_us / 1e3:.3f} ms): " + breakdown_line(step_rows))
+        f"{idle:.3f} (busy {busy_ms:.2f} of {wall_ms:.2f} ms, profiled)")
+    log(f"  one step's kernels (device time over {S} steps; they overlap "
+        f"under programmatic dependent launch, so the sum passes the "
+        f"step's time; the call's other kernels {prep_us / 1e3:.3f} ms): "
+        + breakdown_line(step_rows))
     check(abs(f1_k - f1_p) <= DECODE_F1_TOL,
           f"decode F1 kernel {f1_k} vs plain {f1_p}")
     check(agree >= 0.9, f"decode token agreement {agree}")
@@ -1149,8 +1102,6 @@ def phase_decode(params, dims, batch, gt, bucket, full=None):
           f"decode on the ragged mask: hidden error of the changed rows "
           f"{rag_hid_rows} against {hid_ref} elsewhere")
     check(k_rag["num_steps"] == S, "decode on the ragged mask: steps")
-    check(nopdl_same, "decode: samples differ without programmatic "
-          "dependent launch")
     routes = [step_route(params, dims, batch, bucket)]
     if full is not None:
         routes.append(step_route(params, dims, full, bucket))
@@ -1168,9 +1119,7 @@ def phase_decode(params, dims, batch, gt, bucket, full=None):
             "graph_cache_hits": hits,
             "idle_share": idle,
             "kernel_breakdown": [{"kernel": n, "launches": c, "us": us}
-                                 for n, c, us in step_rows],
-            "ms_simt_order": simt_ms, "ms_without_pdl": nopdl_ms,
-            "token_agreement_simt_order": agree_simt}
+                                 for n, c, us in step_rows]}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -5243,8 +5192,7 @@ def visible_kernel_checks(params, dims, batch, bucket):
         .abs().max().item() if bool(same.any()) else float("nan")
     ms = cuda_ms(kern, reps=3, warmup=1)
     plain_ms = cuda_ms(plain, reps=2, warmup=0)
-    bound_ms, bound_by = decode_bound(dims, params, memory, mask,
-                                      k_out["num_steps"], cd)
+    bound_ms, bound_by = decode_bound(dims, memory, mask, k_out["num_steps"])
     log(f"visible decode bf16 B={B} Li={bucket}: token agreement with the "
         f"plain version {agree:.4f}, identical rows {same.float().mean():.3f}"
         f", hidden max_abs_err on identical rows {err:.3e}; num_steps kernel "
@@ -5700,7 +5648,7 @@ def main() -> int:
         entry["hmma"] = {k: res["hmma"][k] for k in MMA_KERNELS[entry["name"]]}
     decode_entry = {
         "name": "persistent_greedy_decode", "route": "cuda",
-        "source": "plankassembly_tpu_torch/csrc/decode.cu",
+        "source": "plankassembly_tpu_torch/csrc/decode.cu, decode_step.cu",
         "replaces": "plankassembly_tpu/ops/persistent_decode.py:632",
         "launches": serve["bf16"]["persistent_greedy_decode"],
         "max_abs_err": decode["err"], "ms": decode["ms"],
@@ -5708,7 +5656,7 @@ def main() -> int:
         "bound_by": decode["bound_by"], "library_ms": None}
     # the graph loop: steps, ms a step, the cross K/V preparation apart,
     # kernels (graph nodes) a step, capture and instantiate ms, idle share,
-    # one step's kernels, the agreements, the SIMT-order variant
+    # one step's kernels, the agreements
     decode_entry.update({k: v for k, v in decode.items() if k not in (
         "err", "ms", "plain_ms", "bound_ms", "bound_by")})
     decode_entry["shape"] = "B=32 Li=1152 bf16, ep221"

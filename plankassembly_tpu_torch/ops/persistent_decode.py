@@ -11,13 +11,16 @@ with the shape's stream, events and plan (`LaunchStates`), and every call
 of a params object reuses its packed weights (`PreparedWeights`). Two
 routes, chosen by `route_of`: in bf16, where the card holds every cluster
 of the step's plan at once, each step is one launch (`step`: a
-thread-block cluster runs a group of rows through the whole step);
-otherwise a chain of simple kernels (`chain`: about 8 a layer), its bf16
-products on the tensor cores. The step number lives in device memory, so
-every replay continues where the last one stopped. Early exit is that
-halt flag, which every kernel checks and the host reads after each replay
-while the next one runs, so the result (tokens, trailing tokens of rows
-that finished earlier, `num_steps`) equals the JAX while_loop's.
+thread-block cluster runs a group of rows through the whole step,
+`csrc/decode_step.cu`); otherwise a chain of simple kernels (`chain`:
+about 8 a layer), its bf16 products on the tensor cores and its f32 ones
+in the SIMT GEMM's order. Each kernel of the loop starts while the
+previous one ends (programmatic dependent launch). The step number lives
+in device memory, so every replay continues where the last one stopped.
+Early exit is that halt flag, which every kernel checks and the host
+reads after each replay while the next one runs, so the result (tokens,
+trailing tokens of rows that finished earlier, `num_steps`) equals the
+JAX while_loop's.
 
 Semantics (both versions) are those of
 ``decode.greedy_decode(kv_quant=True, self_quant=False, cross_impl="xla")``
@@ -61,14 +64,6 @@ GRAPH_SHAPES = 16
 WEIGHT_SETS = 4
 # steps in the captured graph: between two host reads of the halt flag
 CHECK_EVERY = 8
-# bf16 products run on the tensor cores (mma.sync); True runs bf16
-# decodes through the chain with every product in the SIMT GEMM's order of
-# f32 sums instead, as every f32 decode runs (only to compare the orders)
-SIMT_ORDER = False
-# each kernel of the loop may start while the previous one ends
-# (programmatic dependent launch): its prologue and launch overlap the
-# previous kernel's tail
-PDL = True
 # the graph of the last CUDA call: capture and instantiate ms (host
 # clock, inside the call; 0 on a step route's call that found its shape's
 # graph, while the chain captures every call and updates its graph),
@@ -200,8 +195,7 @@ def greedy_decode_reference(params, memory, memory_mask, dims: ModelDims, *,
 # ---------------------------------------------------------------------------
 
 _INT_FIELDS = ("B", "S", "D", "H", "kvH", "Dh", "F", "V", "L", "Li", "dof",
-               "end_token", "is_bf16", "early_exit", "simt_order", "step",
-               "pdl")
+               "end_token", "is_bf16", "early_exit", "step")
 _PTR_FIELDS = ("wqkv", "bqkv", "wo", "bo", "cwq", "cbq", "cwo", "cbo", "w1",
                "b1", "w2", "b2", "ln", "final_ln", "head_w", "head_b",
                "emb_value", "emb_coord", "emb_pos", "struct_mask", "ck", "cv",
@@ -219,13 +213,13 @@ def route_of(compute_dtype, plan) -> str:
     """The CUDA decode's route: "step" (one launch a step, products on
     mma.sync) for bf16 where the step's `plan` (`step_plan`; None: the step
     cannot run the shapes) runs every cluster in one wave, else "chain" (52
-    kernels a step: bf16 products on mma.sync, or in the SIMT GEMM's order
-    with `SIMT_ORDER`, as every f32 product). The step's time grows with
-    its rows a cluster and, past one wave, with the waves; the chain's
-    kernels spread a large batch over every SM (PERF.md §6: on an H100 the
-    step is the faster up to B=128, the chain from B=160)."""
-    if (compute_dtype == torch.bfloat16 and not SIMT_ORDER
-            and plan is not None and plan["clusters"] <= plan["held"]):
+    kernels a step: bf16 products on mma.sync, f32 products in the SIMT
+    GEMM's order). The step's time grows with its rows a cluster and, past
+    one wave, with the waves; the chain's kernels spread a large batch over
+    every SM (PERF.md §6: on an H100 the step is the faster up to B=128,
+    the chain from B=160)."""
+    if (compute_dtype == torch.bfloat16 and plan is not None
+            and plan["clusters"] <= plan["held"]):
         return "step"
     return "chain"
 
@@ -237,8 +231,7 @@ def _ints(B, Li, dims: ModelDims, cd, early_exit, step):
                 F=dims.num_feedforward, V=dims.vocab_size,
                 L=dims.num_decoder_layers, Li=Li, dof=dims.num_output_dof,
                 end_token=dims.end, is_bf16=int(cd == torch.bfloat16),
-                early_exit=int(early_exit), simt_order=int(SIMT_ORDER),
-                step=int(step), pdl=int(PDL))
+                early_exit=int(early_exit), step=int(step))
 
 
 def step_plan(B, Li, dims: ModelDims):
@@ -263,7 +256,8 @@ def _strips(w, width):
 
 
 class DecodeArgs(ctypes.Structure):
-    """Mirror of `plank::DecodeArgs` in csrc/decode.cu (all fields 8 bytes)."""
+    """Mirror of `plank::DecodeArgs` in csrc/decode_common.cuh (all fields
+    8 bytes)."""
 
     _fields_ = ([(n, ctypes.c_longlong) for n in _INT_FIELDS]
                 + [(n, ctypes.c_void_p) for n in _PTR_FIELDS])

@@ -1,9 +1,10 @@
-"""The redesigned CUDA decode loop (`csrc/decode.cu`,
+"""The redesigned CUDA decode loop (`csrc/decode.cu`, `csrc/decode_step.cu`,
 `ops/persistent_decode.py`), checked on the CPU where the kernels cannot
 run:
 
 - the ctypes mirror `DecodeArgs` against `struct DecodeArgs` parsed from
-  the CUDA source, names, kinds and order;
+  the CUDA header, names, kinds and order, and that header the struct's
+  one definition, included by both sources;
 - the GQA cross-attention's schedule, emulated in plain PyTorch: spans of
   64 keys dealt round robin to the ranks of a cluster, a span with no real
   key skipped (any mask), each kept span read once for every query head of
@@ -44,9 +45,9 @@ from plankassembly_tpu_torch.ops import persistent_decode as PD
 from plankassembly_tpu_torch.ops.cross_decode import quantize_rows
 from tests.tiny import tiny_config
 
-DECODE_CU = os.path.join(os.path.dirname(PD.__file__), os.pardir, "csrc",
-                         "decode.cu")
-SPAN = 64          # kSpan in csrc/decode.cu
+CSRC = os.path.join(os.path.dirname(PD.__file__), os.pardir, "csrc")
+DECODE_COMMON = "decode_common.cuh"
+SPAN = 64          # kSpan in csrc/decode_common.cuh
 NEG_INF = -1e9
 # the schedule adds the same f32 terms in another order, and folds the
 # K scale into the scores
@@ -72,13 +73,30 @@ def _struct_fields(src):
     return fields
 
 
+def _read(name):
+    with open(os.path.join(CSRC, name)) as f:
+        return f.read()
+
+
 def test_decode_args_mirror_matches_the_cuda_struct():
-    with open(DECODE_CU) as f:
-        want = _struct_fields(f.read())
+    want = _struct_fields(_read(DECODE_COMMON))
     got = [(n, "ptr" if t is ctypes.c_void_p else "int")
            for n, t in PD.DecodeArgs._fields_]
     assert got == want
     assert ctypes.sizeof(PD.DecodeArgs) == 8 * len(want)
+
+
+@pytest.mark.parametrize("source", ["decode.cu", "decode_step.cu"])
+def test_each_decode_source_takes_the_one_decode_args(source):
+    """Both routes' sources are built apart and pass one DecodeArgs
+    between them: each includes the header that defines it, and no other
+    source under csrc/ defines its own (two copies that drift apart would
+    disagree on the layout without an error)."""
+    assert f'#include "{DECODE_COMMON}"' in _read(source)
+    defines = [n for n in sorted(os.listdir(CSRC))
+               if n.endswith((".cu", ".cuh"))
+               and re.search(r"struct DecodeArgs \{", _read(n))]
+    assert defines == [DECODE_COMMON]
 
 
 # ---------------------------------------------- GQA cross-attention schedule
@@ -321,10 +339,8 @@ def test_prepare_holds_only_what_the_kernels_read(cd, route):
         assert torch.equal(ts[n], q.reshape(L, B, Li, -1))
         assert torch.equal(ts[s], scale.reshape(L, B, kvH))
     args = PD.DecodeArgs(**ints, **{n: 0 for n in PD._PTR_FIELDS})
-    # the route's flag; bf16 products on the tensor cores unless asked for
-    # the SIMT order
+    # the route's flag and the compute dtype
     assert args.step == step and args.is_bf16 == (cd == torch.bfloat16)
-    assert args.simt_order == 0
     # the head's columns padded (to the chain's GEMM tile, or to whole
     # strips of 4 for the step), the pad zero
     NH = dims.vocab_size + dims.num_model + 1
@@ -351,12 +367,9 @@ def test_prepare_holds_only_what_the_kernels_read(cd, route):
         assert (again[n] is ts[n]) == (n in kept), n
 
 
-@pytest.mark.parametrize("cd,simt_order,route", [
-    (torch.bfloat16, False, "step"), (torch.float32, False, "chain"),
-    (torch.bfloat16, True, "chain"), (torch.float32, True, "chain")])
-def test_route_bf16_takes_the_step_f32_and_simt_order_the_chain(
-        cd, simt_order, route, monkeypatch):
-    monkeypatch.setattr(PD, "SIMT_ORDER", simt_order)
+@pytest.mark.parametrize("cd,route", [
+    (torch.bfloat16, "step"), (torch.float32, "chain")])
+def test_route_bf16_takes_the_step_f32_the_chain(cd, route):
     assert PD.route_of(cd, ONE_WAVE) == route
     params, dims = _tiny()
     memory = torch.zeros(2, 5, dims.num_model)
@@ -364,7 +377,6 @@ def test_route_bf16_takes_the_step_f32_and_simt_order_the_chain(
     _, ints = PD._prepare(params, memory, mask, dims, cd, early_exit=False,
                           route=route)
     assert ints["step"] == (route == "step")
-    assert ints["simt_order"] == simt_order
 
 
 @pytest.mark.parametrize("clusters,held,route", [

@@ -1,4 +1,4 @@
-"""The decode's step as one launch on the card (`csrc/decode.cu`,
+"""The decode's step as one launch on the card (`csrc/decode_step.cu`,
 `step::step_kernel`, the step route of `persistent_greedy_decode`) against
 the plain version `greedy_decode_reference`: ep221 on the serving drawings
 at B = 1, 5 and 64, with early exit on and off, at the side-face (256 keys)
